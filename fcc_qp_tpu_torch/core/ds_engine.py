@@ -1,0 +1,741 @@
+"""Batched reduced-subspace ADMM engine — the port's main path.
+
+Port of the reduced path of `fcc_qp_tpu/core/ds_engine.py`. The JAX
+engine keeps its state in double-single f32 pairs because the TPU has no
+f64 ALU; this engine keeps it in native f64 wherever the JAX engine
+uses ds, and in f32 wherever the JAX engine is plain f32 (the
+Newton-Schulz inverse seeds and the approach phase). Data and state are
+batch-LAST (``(n, B)`` vectors, ``(n, m, B)`` matrices) so that the
+one-thread-per-instance ADMM kernels load coalesced.
+
+One cold solve (`solve_batched_ds`) runs, in order:
+  1. Ruiz scaling (`ops.scaling`), factors bit-equal to the JAX engine's;
+  2. the reduced KKT operator: f32 NS seed (+ f64 column refinement
+     unless the exact build is deferred, `_lazy_exact`);
+  3. the plain-f32 approach phase to a coarse tolerance, in chunks of
+     the CUDA kernel `ops.pallas_admm.admm_chunk_f32`;
+  4. PDAS active-set polish (`ops.polish`) with gathered retry rounds;
+  5. the deferred exact operator for instances polish did not accept,
+     and the f64 endgame in chunks of `ops.pallas_admm.admm_chunk_f64`;
+  6. the final primal, violations and status.
+
+The JAX engine's `lax.while_loop` over chunks is a Python loop here,
+with the convergence test between chunks (one host read per chunk).
+
+Not ported yet (raise `NotImplementedError`, see ROADMAP.md queue A):
+warm replay with carried operator seeds (`OperatorCache`,
+`replay_ds_streams`), the full-splitting engine, the all-ds factor,
+exact presolve, adaptive rho, over-relaxation, and problems without
+constrained coordinates or without cones.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
+from fcc_qp_tpu_torch.ops.ds_linalg import (
+    assemble_kkt_ds,
+    kkt_inverse_blocks_refined_ds,
+    kkt_inverse_f32_seed,
+    matvec_ds,
+    refine_inverse_columns_ds,
+    solve_from_seed_ds,
+    transpose_ds,
+)
+from fcc_qp_tpu_torch.ops.pallas_admm import admm_chunk_f32, admm_chunk_f64
+from fcc_qp_tpu_torch.ops.polish import polish_reduced
+from fcc_qp_tpu_torch.ops.scaling import apply_scaling, ruiz_scaling
+from fcc_qp_tpu_torch.types import (
+    FCCQPDetails,
+    FCCQPSolution,
+    FCCQPSolveStatus,
+)
+from fcc_qp_tpu_torch.utils.io import QP_KEYS
+from fcc_qp_tpu_torch.utils.timing import StageClock, stamp_solution_times, sync
+
+
+class QPBatchDS(NamedTuple):
+    """QP batch, f64, batch-last: Q (n,n,B), b (n,B), A_eq (m,n,B),
+    b_eq (m,B), friction_coeffs (nc/3,B), lb/ub (n,B). (The name is the
+    JAX engine's; the data is native f64, not double-single.)"""
+
+    Q: torch.Tensor
+    b: torch.Tensor
+    A_eq: torch.Tensor
+    b_eq: torch.Tensor
+    friction_coeffs: torch.Tensor
+    lb: torch.Tensor
+    ub: torch.Tensor
+
+    @property
+    def batch(self) -> int:
+        return self.b.shape[-1]
+
+
+class WarmStartDS(NamedTuple):
+    """ADMM state carried across solves, full-space and UNSCALED,
+    batch-last f64; rho (B,) f32."""
+
+    x: torch.Tensor
+    mu_x: torch.Tensor
+    mu_lambda_c: torch.Tensor
+    rho: torch.Tensor
+
+
+def resolve_device(device=None) -> torch.device:
+    """Entry points run on the card unless the caller asks for the CPU:
+    ``None`` means CUDA, and CUDA without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def to_ds_batch(stacked: dict, device=None) -> QPBatchDS:
+    """Host -> device: a stacked (B-leading) f64 dict with the reference
+    npz schema becomes a batch-last f64 `QPBatchDS` on ``device``
+    (default CUDA)."""
+    dev = resolve_device(device)
+
+    def conv(key):
+        a = np.moveaxis(np.asarray(stacked[key], np.float64), 0, -1)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return QPBatchDS(*(conv(k) for k in QP_KEYS))
+
+
+def warm_start_from_numpy(x_hi, x_lo, mu_x_hi, mu_x_lo, mu_lc_hi, mu_lc_lo,
+                          rho, device=None) -> WarmStartDS:
+    """Convert the JAX package's `WarmStartDS` (its double-single words
+    as batch-last numpy arrays) into this package's: each hi + lo pair
+    is summed in f64; rho stays f32."""
+    dev = resolve_device(device)
+
+    def f64(hi, lo):
+        a = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return WarmStartDS(
+        x=f64(x_hi, x_lo),
+        mu_x=f64(mu_x_hi, mu_x_lo),
+        mu_lambda_c=f64(mu_lc_hi, mu_lc_lo),
+        rho=torch.from_numpy(np.array(rho, np.float32)).to(dev),
+    )
+
+
+def _gather_qp(qp: QPBatchDS, idx) -> QPBatchDS:
+    return QPBatchDS(*(a[..., idx] for a in qp))
+
+
+def _put_last(full: torch.Tensor, idx, sub: torch.Tensor):
+    """``full[..., idx] = sub`` along the batch axis, out of place."""
+    out = full.clone()
+    out[..., idx] = sub
+    return out
+
+
+def _scatter_last(full: torch.Tensor, idx, sub: torch.Tensor, sel):
+    """``full[..., idx] = where(sel, sub, full[..., idx])``, out of place."""
+    m = sel.reshape((1,) * (full.dim() - 1) + (-1,))
+    return _put_last(full, idx, torch.where(m, sub, full[..., idx]))
+
+
+def constrained_indices(qp: QPBatchDS, shape: ProblemShape) -> tuple:
+    """Coordinate ordering of the reduced splitting: coordinates with a
+    finite bound in ANY instance first, the cone segment last (so the
+    reduced cone segment is the contiguous tail). Free coordinates carry
+    zero dual and identity projections, so leaving them out keeps the
+    fixed point while shrinking the hot-loop operator to k x k."""
+    nc, ls = shape.nc, shape.lambda_c_start
+    cone = tuple(range(ls, ls + nc))
+    lb = qp.lb.cpu().numpy()
+    ub = qp.ub.cpu().numpy()
+    finite = np.isfinite(lb).any(axis=-1) | np.isfinite(ub).any(axis=-1)
+    finite[ls:ls + nc] = False
+    return tuple(int(i) for i in np.where(finite)[0]) + cone
+
+
+def _eq_residual_inf(qp: QPBatchDS, x: torch.Tensor) -> torch.Tensor:
+    """``max_i |A_eq x - b_eq|`` per instance in unscaled units — the
+    observable of a factorization failure."""
+    if qp.A_eq.shape[0] == 0:
+        return torch.zeros_like(qp.b[0])
+    r = matvec_ds(transpose_ds(qp.A_eq), x) - qp.b_eq
+    return r.abs().amax(dim=0)
+
+
+def _status_checked(n_iter, max_iter: int, eq_viol, qp: QPBatchDS):
+    """kMaxIterations at the iteration cap, else kSuccess; an
+    equality-infeasible primal (relative inf-norm residual above 1e-3)
+    reads kFactorizationFailed."""
+    status = torch.where(
+        n_iter == max_iter,
+        int(FCCQPSolveStatus.kMaxIterations),
+        int(FCCQPSolveStatus.kSuccess),
+    ).to(torch.int32)
+    if qp.A_eq.shape[0] == 0:
+        return status
+    thresh = 1e-3 * (1.0 + qp.b_eq.abs().amax(dim=0))
+    return torch.where(
+        eq_viol > thresh,
+        torch.full_like(status, int(FCCQPSolveStatus.kFactorizationFailed)),
+        status,
+    )
+
+
+def _check_supported(opts: FCCQPOptions, shape: ProblemShape, k: int):
+    """Options and problem classes this slice of the port does not cover
+    raise, naming the ROADMAP.md queue-A item that adds them."""
+    unsupported = []
+    if opts.adaptive_rho:
+        unsupported.append("adaptive_rho=True (item 11)")
+    if opts.alpha != 1.0:
+        unsupported.append("alpha != 1 (item 11)")
+    if opts.kkt_factor != "hybrid":
+        unsupported.append("kkt_factor='ds' (item 9)")
+    if opts.splitting != "constrained":
+        unsupported.append("splitting='full' (item 9)")
+    if opts.presolve != "operator":
+        unsupported.append("presolve='exact' (item 9)")
+    if k == 0 or shape.nc == 0:
+        unsupported.append("problems with no cone or no constrained "
+                           "coordinate (item 9)")
+    if unsupported:
+        raise NotImplementedError(
+            "not ported yet (ROADMAP.md queue A): " + ", ".join(unsupported)
+        )
+
+
+class _PrepReduced(NamedTuple):
+    """Factorization-phase outputs of the reduced engine."""
+
+    qps: QPBatchDS       # scaled problem
+    d: torch.Tensor      # (n, B) f32 variable scales
+    e: torch.Tensor      # (m, B) f32 equality-row scales
+    rho0: torch.Tensor   # (B,) f32
+    mu0: torch.Tensor    # (k, B) initial scaled duals
+    x_init: torch.Tensor  # (n, B) initial scaled primal
+    Fcc: torch.Tensor    # (k, k, B) j-major hot-loop operator
+    xc_const: torch.Tensor
+    Fcolj: torch.Tensor  # (k, n, B) for the final full-x recovery
+    x_const: torch.Tensor
+    seed_bad: Optional[torch.Tensor] = None
+
+
+def _scale_reduced(qp: QPBatchDS, shape: ProblemShape, opts: FCCQPOptions):
+    """Ruiz-equilibrate the batch. Forced whenever splitting is
+    'constrained' (removing rho from the free coordinates leaves the
+    KKT (1,1) block near-singular on unequilibrated data). The factors
+    come from the f32-rounded data, as the JAX engine computes them from
+    its hi words."""
+    sc = ruiz_scaling(
+        qp.Q.float(), qp.A_eq.float(), qp.b.float(), shape,
+        iters=opts.scaling_iters,
+    )
+    return apply_scaling(qp, sc, shape), sc
+
+
+def _lazy_exact(opts: FCCQPOptions) -> bool:
+    """Whether the exact operator build is deferred until after the
+    polish: requires the hybrid factorization and an f32 approach phase
+    ending in a polish — then only polish-rejected instances ever need
+    the f64-refined operator."""
+    coarse = max(opts.phase1_tol, opts.polish_tol if opts.polish else 0.0)
+    return (
+        opts.lazy_exact
+        and opts.kkt_factor == "hybrid"
+        and opts.polish
+        and coarse > max(opts.eps_bound, opts.eps_fcone)
+    )
+
+
+def _rho_diag(rho: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return rho[None, :] * mask[:, None]
+
+
+def _reduced_blocks(Fci: torch.Tensor, ci_t: torch.Tensor):
+    """From batch-leading Fci (B, n, k) = F[:, ci]: Fcolj (k, n, B) with
+    [j, i] = F[i, ci_j], and the j-major hot-loop operator Fcc (k, k, B)
+    with [j, j'] = F[ci_j', ci_j]."""
+    Fcolj = Fci.permute(2, 1, 0).contiguous()
+    Fcc = Fci[:, ci_t, :].permute(2, 1, 0).contiguous()
+    return Fcc, Fcolj
+
+
+def _factor_reduced(qp: QPBatchDS, rho, ci, mask, refine_steps: int):
+    """Partial-splitting operator from the f64 Schur-Cholesky route
+    (`ops.ds_linalg.kkt_inverse_blocks_refined_ds`): the fallback for
+    instances the hybrid seed cannot serve. Returns
+    (Fcc, xc_const, Fcolj, x_const)."""
+    ci_t = torch.as_tensor(ci, device=qp.b.device)
+    F, G = kkt_inverse_blocks_refined_ds(
+        qp.Q, qp.A_eq, _rho_diag(rho, mask), refine_steps=refine_steps
+    )
+    x_const = (
+        matvec_ds(transpose_ds(G), qp.b_eq) - matvec_ds(transpose_ds(F), qp.b)
+    )
+    Fci = F[:, ci_t, :].permute(2, 0, 1)          # (B, n, k) = F[:, ci]
+    Fcc, Fcolj = _reduced_blocks(Fci, ci_t)
+    return Fcc, x_const[ci_t].contiguous(), Fcolj, x_const.contiguous()
+
+
+def _factor_reduced_hybrid(qp: QPBatchDS, rho, ci, mask, passes: int):
+    """Hybrid operator: f32 Schur NS seed + f64 refinement of ONLY the
+    needed inverse columns and the constant term. Instances whose seed
+    did not contract, or whose refined constant-term solve misses 1e-5
+    relative residual against the true KKT, are re-factored on the f64
+    Schur-Cholesky route. Returns (Fcc, xc_const, Fcolj, x_const, X32)."""
+    n = qp.Q.shape[0]
+    dev = qp.b.device
+    ci_t = torch.as_tensor(ci, device=dev)
+    rd = _rho_diag(rho, mask)
+    M = assemble_kkt_ds(qp.Q, qp.A_eq, rd)
+    X32, seed_res = kkt_inverse_f32_seed(qp.Q, qp.A_eq, rd)
+    C = refine_inverse_columns_ds(X32, M, ci, passes=passes)   # (B, N, k)
+    Fcc, Fcolj = _reduced_blocks(C[:, :n, :], ci_t)
+    r = torch.cat([-qp.b, qp.b_eq], dim=0)
+    xfull = solve_from_seed_ds(X32, M, r, passes=passes)
+    x_const = xfull[:n].contiguous()
+    xc_const = x_const[ci_t].contiguous()
+
+    rres = (M @ xfull.T[:, :, None])[:, :, 0].T - r
+    rel = rres.abs().amax(dim=0) / (1.0 + r.abs().amax(dim=0))
+    bad = (seed_res > 0.5) | (rel > 1e-5)
+    if bool(bad.any()):
+        idx = torch.nonzero(bad)[:, 0]
+        sel = torch.ones_like(idx, dtype=torch.bool)
+        ds_out = _factor_reduced(
+            _gather_qp(qp, idx), rho[idx], ci, mask, max(passes - 1, 1)
+        )
+        Fcc, xc_const, Fcolj, x_const = (
+            _scatter_last(full, idx, sub, sel)
+            for full, sub in zip((Fcc, xc_const, Fcolj, x_const), ds_out)
+        )
+    return Fcc, xc_const, Fcolj, x_const, X32
+
+
+def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask):
+    """f32-only reduced operator: the NS KKT inverse seed sliced to the
+    hot-loop blocks, no refinement (accuracy ~1e-3 relative, enough for
+    the coarse approach phase + polish). Returns
+    (Fcc32, xc_const32, Fcolj32, x_const32, X32, bad) with ``bad`` the
+    per-instance non-contraction flag of the seed."""
+    n = qp.Q.shape[0]
+    ci_t = torch.as_tensor(ci, device=qp.b.device)
+    X32, seed_res = kkt_inverse_f32_seed(qp.Q, qp.A_eq, _rho_diag(rho, mask))
+    r = torch.cat([-qp.b.float(), qp.b_eq.float()], dim=0)
+    xfull = (X32 @ r.T[:, :, None])[:, :, 0].T
+    Fcc, Fcolj = _reduced_blocks(X32[:, :n, ci_t], ci_t)
+    x_const = xfull[:n].contiguous()
+    return (Fcc, x_const[ci_t].contiguous(), Fcolj, x_const, X32,
+            seed_res > 0.5)
+
+
+def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
+                     clock: Optional[StageClock] = None):
+    """Stage 1 (the "factorization" phase): equilibration, initial state
+    (warm: unscaled full-space state -> scaled reduced coordinates;
+    cold: the operator presolve), and the reduced KKT operator."""
+    nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
+    B = qp.batch
+    dev = qp.b.device
+    ci = np.asarray(con_idx, dtype=np.int64)
+    ci_t = torch.as_tensor(ci, device=dev)
+    k = len(con_idx)
+    kb = k - nc
+
+    clock = clock or StageClock()
+    qps, sc = _scale_reduced(qp, shape, opts)
+    clock.mark("scaling")
+    d = sc.d
+    inv_d = (1.0 / d).double()
+    mask = torch.zeros((nv,), dtype=torch.float32, device=dev)
+    mask[ci_t] = 1.0
+
+    x_init = None
+    if warm_start:
+        if warm is None:
+            raise ValueError("warm_start=True needs a warm state")
+        rho0 = warm.rho.float()
+        x_init = warm.x * inv_d
+        mu_box = warm.mu_x[ci_t[:kb]] * inv_d[ci_t[:kb]]
+        mu_cone = warm.mu_lambda_c * inv_d[ls:ls + nc]
+        mu0 = torch.cat([mu_box, mu_cone], dim=0)
+    else:
+        rho0 = torch.full((B,), opts.rho, dtype=torch.float32, device=dev)
+        mu0 = torch.zeros((k, B), dtype=torch.float64, device=dev)
+
+    seed_bad = None
+    if _lazy_exact(opts):
+        # f32-only operator: the approach phase and the self-solving
+        # polish never need more; the exact build is deferred to just
+        # before the endgame (`_iterate_reduced`)
+        Fcc, xc_const, Fcolj, x_const, _, seed_bad = _factor_reduced_f32(
+            qps, rho0, ci, mask
+        )
+        Fcc, xc_const = Fcc.double(), xc_const.double()
+        Fcolj, x_const = Fcolj.double(), x_const.double()
+    else:
+        Fcc, xc_const, Fcolj, x_const, _ = _factor_reduced_hybrid(
+            qps, rho0, ci, mask, opts.kkt_refine_steps + 1
+        )
+    if x_init is None:
+        x_init = x_const
+    clock.mark("operator")
+    return _PrepReduced(
+        qps=qps, d=d, e=sc.e, rho0=rho0, mu0=mu0,
+        x_init=x_init, Fcc=Fcc, xc_const=xc_const, Fcolj=Fcolj,
+        x_const=x_const, seed_bad=seed_bad,
+    )
+
+
+@dataclasses.dataclass
+class _RState:
+    it: int                  # global iteration counter (chunks * K)
+    xc: torch.Tensor         # (k, B) primal, constrained coords
+    s: torch.Tensor          # (k, B) slack (box part + cone tail)
+    mu: torch.Tensor         # (k, B) scaled duals
+    v: torch.Tensor          # (k, B) the s - mu that produced xc
+    rho: torch.Tensor        # (B,) f32
+    Fcc: torch.Tensor
+    xc_const: torch.Tensor
+    Fcolj: torch.Tensor
+    x_const: torch.Tensor
+    x_res_norm: torch.Tensor  # (B,) f64
+    lam_res_norm: torch.Tensor
+    prim_norm: torch.Tensor
+    dual_norm: torch.Tensor
+    n_iter: torch.Tensor      # (B,) int32
+    itv: torch.Tensor         # (B,) int32 per-instance iteration counter
+    done: torch.Tensor        # (B,) bool
+
+
+class _Polish(NamedTuple):
+    x: torch.Tensor
+    accept: torch.Tensor
+    seed: torch.Tensor
+    cls: torch.Tensor
+
+
+def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
+                     clock: Optional[StageClock] = None):
+    """Stage 2: approach phase, polish, deferred exact operator, f64
+    endgame and the final primal / details / warm state."""
+    nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
+    B = qp.batch
+    dev = qp.b.device
+    f64 = torch.float64
+    clock = clock or StageClock()
+    ci = np.asarray(con_idx, dtype=np.int64)
+    ci_t = torch.as_tensor(ci, device=dev)
+    k = len(con_idx)
+    kb = k - nc
+    mask = torch.zeros((nv,), dtype=torch.float32, device=dev)
+    mask[ci_t] = 1.0
+    # the JAX engine compares its residuals against f32 tolerances
+    eps_b = float(np.float32(opts.eps_bound))
+    eps_f = float(np.float32(opts.eps_fcone))
+    max_iter = opts.max_iter
+    inc_gate = opts.presolve == "operator"
+
+    qps = prep.qps
+    d = prep.d
+    wk = d[ci_t].contiguous()            # (k, B) f32 residual weights
+    wk64 = wk.double()
+    lbc = qps.lb[ci_t[:kb]].contiguous()
+    ubc = qps.ub[ci_t[:kb]].contiguous()
+    mu_eff = qps.friction_coeffs.contiguous()
+    lbc32, ubc32, mu_eff32 = lbc.float(), ubc.float(), mu_eff.float()
+
+    K = min(max_iter, 64)
+    n_chunks = -(-max_iter // K)
+
+    xc0 = prep.x_init[ci_t].contiguous()
+    zeros_b = torch.zeros((B,), dtype=f64, device=dev)
+    st = _RState(
+        it=0, xc=xc0, s=xc0, mu=prep.mu0.contiguous(), v=xc0 - prep.mu0,
+        rho=prep.rho0, Fcc=prep.Fcc, xc_const=prep.xc_const,
+        Fcolj=prep.Fcolj, x_const=prep.x_const,
+        x_res_norm=zeros_b, lam_res_norm=zeros_b, prim_norm=zeros_b,
+        dual_norm=zeros_b,
+        n_iter=torch.full((B,), max_iter, dtype=torch.int32, device=dev),
+        itv=torch.zeros((B,), dtype=torch.int32, device=dev),
+        done=torch.zeros((B,), dtype=torch.bool, device=dev),
+    )
+
+    def settled(st):
+        return bool((st.done | (st.itv >= max_iter)).all())
+
+    def lift32(st):
+        # instances entering the f32 phase drop to f32 values; frozen
+        # (already done) instances keep their f64 state
+        frozen = st.done[None, :]
+        z32 = lambda a: torch.where(frozen, a, a.float().double())
+        st.xc, st.s, st.mu, st.v = z32(st.xc), z32(st.s), z32(st.mu), z32(st.v)
+
+    op32 = {}
+
+    def chunk32(st, Kc, tau):
+        """One approach-phase chunk (`admm_chunk_f32`); frozen instances
+        keep their f64 state, iterated ones come back as f32 values."""
+        if "Fcc" not in op32:
+            op32["Fcc"] = st.Fcc.float().contiguous()
+            op32["xc"] = st.xc_const.float().contiguous()
+        (x, s, mu, v, done, _n_iter, itv, xrn, lrn, prim, dual) = admm_chunk_f32(
+            op32["Fcc"], op32["xc"], lbc32, ubc32, mu_eff32, st.rho,
+            tau, tau,
+            st.xc.float(), st.s.float(), st.mu.float(), st.v.float(),
+            st.done, st.n_iter, st.itv,
+            st.x_res_norm.float(), st.lam_res_norm.float(),
+            st.prim_norm.float(), st.dual_norm.float(),
+            kb=kb, K=Kc, max_iter=max_iter, weights=wk,
+        )
+        frozen = st.done[None, :]
+        keep = lambda new, old: torch.where(frozen, old, new.double())
+        st.xc, st.s = keep(x, st.xc), keep(s, st.s)
+        st.mu, st.v = keep(mu, st.mu), keep(v, st.v)
+        st.x_res_norm, st.lam_res_norm = xrn.double(), lrn.double()
+        st.prim_norm, st.dual_norm = prim.double(), dual.double()
+        st.itv, st.done = itv, done
+        st.it += Kc
+
+    def chunk64(st):
+        """One endgame chunk (`admm_chunk_f64`)."""
+        (st.xc, st.s, st.mu, st.v, st.done, st.n_iter, st.itv,
+         st.x_res_norm, st.lam_res_norm, st.prim_norm,
+         st.dual_norm) = admm_chunk_f64(
+            st.Fcc, st.xc_const, lbc, ubc, mu_eff, st.rho.double(),
+            eps_b, eps_f,
+            st.xc, st.s, st.mu, st.v, st.done, st.n_iter, st.itv,
+            st.x_res_norm, st.lam_res_norm, st.prim_norm, st.dual_norm,
+            kb=kb, K=K, max_iter=max_iter, weights=wk64, inc_gate=inc_gate,
+        )
+        st.it += K
+
+    coarse_tol = max(opts.phase1_tol, opts.polish_tol if opts.polish else 0.0)
+    two_phase = coarse_tol > max(opts.eps_bound, opts.eps_fcone)
+    do_polish = opts.polish and two_phase
+    pol = None
+    n_attempts = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    def polish_args(st, idx=None):
+        g = (lambda a: a) if idx is None else (lambda a: a[..., idx])
+        sub = qps if idx is None else _gather_qp(qps, idx)
+        return dict(
+            qps=sub, shape=shape, ci=ci, kb=kb, s=g(st.s), mu_dual=g(st.mu),
+            rho=g(st.rho), wk=g(wk), lbc=g(lbc), ubc=g(ubc),
+            e_scale=g(prep.e), eps_bound=opts.eps_bound,
+            eps_fcone=opts.eps_fcone, act_tol=opts.polish_act_tol,
+            newton_steps=opts.polish_newton_steps,
+        )
+
+    def adopt(st, acc, p_s, p_mu, p_xres, p_lres, idx=None):
+        """Accepted instances take the polished slack / duals / residuals
+        and are frozen with n_iter = their iteration count."""
+        if idx is None:
+            a2 = acc[None, :]
+            st.s = torch.where(a2, p_s, st.s)
+            st.mu = torch.where(a2, p_mu, st.mu)
+            st.x_res_norm = torch.where(acc, p_xres, st.x_res_norm)
+            st.lam_res_norm = torch.where(acc, p_lres, st.lam_res_norm)
+            st.n_iter = torch.where(acc, st.itv, st.n_iter)
+            st.done = st.done | acc
+            return
+        st.s = _scatter_last(st.s, idx, p_s, acc)
+        st.mu = _scatter_last(st.mu, idx, p_mu, acc)
+        st.x_res_norm = _scatter_last(st.x_res_norm, idx, p_xres, acc)
+        st.lam_res_norm = _scatter_last(st.lam_res_norm, idx, p_lres, acc)
+        st.n_iter = _scatter_last(st.n_iter, idx, st.itv[idx], acc)
+        st.done = _put_last(st.done, idx, st.done[idx] | acc)
+
+    if two_phase:
+        # phase 1: plain-f32 approach to the coarse tolerance
+        lift32(st)
+        while st.it < n_chunks * K and not settled(st):
+            chunk32(st, K, coarse_tol)
+        clock.mark("approach")
+        # "crossed tau" is not converged
+        st.done = torch.zeros_like(st.done)
+        if do_polish:
+            # attempt 1 at the coarse point, full batch
+            p = polish_reduced(**polish_args(st))
+            acc = p.accept & ~st.done
+            adopt(st, acc, p.s, p.mu, p.x_res, p.lam_res)
+            pol = _Polish(x=p.x, accept=acc, seed=p.seed, cls=p.cls)
+            n_attempts = torch.ones((B,), dtype=torch.int32, device=dev)
+            clock.mark("polish")
+
+            # re-polish rounds: rejected instances run a short f32 chunk
+            # at a tighter tolerance, then retry on a capacity-gathered
+            # sub-batch from the refreshed seed; a round is skipped once
+            # every instance is accepted or out of iterations
+            C_r = min(B, max(128, B // 8))
+            round_tau = coarse_tol
+            for _ in range(opts.polish_rounds - 1):
+                round_tau = max(
+                    round_tau * 0.125,
+                    4.0 * max(opts.eps_bound, opts.eps_fcone),
+                    1e-4,
+                )
+                if bool((pol.accept | (st.itv >= max_iter)).all()):
+                    continue
+                chunk32(st, opts.polish_interval, round_tau)
+                clock.mark("approach")
+                st.done = pol.accept.clone()
+                rem = ~pol.accept & ~st.done & (st.itv < max_iter)
+                idx = torch.argsort(-rem.float(), stable=True)[:C_r]
+                sel = rem[idx]
+                p = polish_reduced(
+                    **polish_args(st, idx), seed=pol.seed[idx]
+                )
+                acc_s = p.accept & sel
+                adopt(st, acc_s, p.s, p.mu, p.x_res, p.lam_res, idx=idx)
+                seed = pol.seed.clone()
+                seed[idx] = torch.where(sel[:, None, None], p.seed, seed[idx])
+                pol = _Polish(
+                    x=_scatter_last(pol.x, idx, p.x, acc_s),
+                    accept=_put_last(pol.accept, idx, pol.accept[idx] | acc_s),
+                    seed=seed,
+                    cls=_scatter_last(pol.cls, idx, p.cls, sel),
+                )
+                n_attempts = _put_last(
+                    n_attempts, idx, n_attempts[idx] + sel.int()
+                )
+                clock.mark("polish")
+    itv_f32 = st.itv.clone()
+
+    if _lazy_exact(opts):
+        # the deferred exact operator, for instances polish did not
+        # accept (and whose f32 seed never contracted), built on
+        # capacity-gathered sub-batches LOOPING until every one is
+        # covered: an overflow instance left on the f32 operator would
+        # converge to a perturbed fixed point and read kSuccess
+        maxed = st.itv >= max_iter
+        rem = ~(st.done | maxed)
+        if prep.seed_bad is not None:
+            rem = rem | (prep.seed_bad & ~maxed)
+        C3 = min(B, 128)
+        while bool(rem.any()):
+            idx = torch.argsort(-rem.float(), stable=True)[:C3]
+            sel = rem[idx]
+            out = _factor_reduced_hybrid(
+                _gather_qp(qps, idx), st.rho[idx], ci, mask,
+                opts.kkt_refine_steps + 1,
+            )[:4]
+            st.Fcc, st.xc_const, st.Fcolj, st.x_const = (
+                _scatter_last(full, idx, sub, sel)
+                for full, sub in zip(
+                    (st.Fcc, st.xc_const, st.Fcolj, st.x_const), out
+                )
+            )
+            rem = rem.clone()
+            rem[idx] = False
+        clock.mark("exact_build")
+
+    it_budget = 2 * n_chunks * K + (opts.polish_rounds - 1) * opts.polish_interval
+    while st.it < it_budget and not settled(st):
+        chunk64(st)
+    clock.mark("endgame")
+
+    # final full-space primal at the v that PRODUCED the accepted xc
+    x_s = st.x_const + st.rho.double()[None, :] * matvec_ds(st.Fcolj, st.v)
+    if pol is not None:
+        x_s = torch.where(pol.accept[None, :], pol.x, x_s)
+    x = x_s * d.double()
+
+    # violations in unscaled units against the original data
+    bdiff = x - torch.clamp(x, qp.lb, qp.ub)
+    bounds_viol = torch.sqrt((bdiff * bdiff).sum(dim=0))
+    f3 = x[ls:ls + nc].reshape(nc // 3, 3, B)
+    nxy = torch.sqrt(f3[:, 0] ** 2 + f3[:, 1] ** 2)
+    fcone_viol = torch.clamp_min(
+        nxy - qp.friction_coeffs * f3[:, 2], 0.0
+    ).sum(dim=0)
+
+    eq_viol = _eq_residual_inf(qp, x)
+    zeros_i = torch.zeros((B,), dtype=torch.int32, device=dev)
+    status = _status_checked(st.n_iter, max_iter, eq_viol, qp)
+    if pol is not None:
+        # a polish-accepted instance carries a self-validated solution
+        status = torch.where(
+            pol.accept & (status == int(FCCQPSolveStatus.kMaxIterations)),
+            torch.full_like(status, int(FCCQPSolveStatus.kSuccess)),
+            status,
+        )
+    details = FCCQPDetails(
+        n_iter=st.n_iter,
+        admm_residual_bounds=st.x_res_norm,
+        admm_residual_friction_cone=st.lam_res_norm,
+        solve_time=zeros_b,
+        factorization_time=zeros_b,
+        bounds_viol=bounds_viol,
+        friction_cone_viol=fcone_viol,
+        solve_status=status,
+        equality_viol=eq_viol,
+        n_iter_f32=itv_f32,
+        n_iter_ds=st.itv - itv_f32,
+        polish_attempts=n_attempts,
+        polish_accepted=pol.accept.int() if pol is not None else zeros_i,
+    )
+
+    # warm state: full-space, UNSCALED
+    mu_u = st.mu * wk64
+    mu_x = torch.zeros((nv, B), dtype=f64, device=dev)
+    mu_x[ci_t[:kb]] = mu_u[:kb]
+    new_warm = WarmStartDS(
+        x=x, mu_x=mu_x, mu_lambda_c=mu_u[kb:], rho=st.rho,
+    )
+    sol = FCCQPSolution(details=details, z=x.T.contiguous())
+    clock.mark("finalize")
+    return sol, new_warm
+
+
+def solve_batched_ds(
+    qp: QPBatchDS,
+    shape: ProblemShape,
+    opts: FCCQPOptions = FCCQPOptions(),
+    warm: Optional[WarmStartDS] = None,
+    warm_start: bool = False,
+    device=None,
+    stage_times: Optional[dict] = None,
+):
+    """Batched cold (or warm-started) solve on the reduced path.
+
+    Runs on ``device`` (default CUDA; raises when there is no card),
+    moving ``qp`` / ``warm`` there if they live elsewhere. Requires
+    ``splitting='constrained'`` (which forces Ruiz scaling),
+    ``presolve='operator'`` and the hybrid factor; other options raise
+    `NotImplementedError`. ``details.solve_time`` /
+    ``factorization_time`` hold wall-clock phase spans (each ending in a
+    device synchronize). ``stage_times``: a dict that receives the
+    synchronized wall seconds of each stage (scaling, operator,
+    approach, polish, exact_build, endgame, finalize); it adds a device
+    synchronize at every stage boundary.
+
+    Returns ``(FCCQPSolution, WarmStartDS)``.
+    """
+    dev = resolve_device(device)
+    con_idx = constrained_indices(qp, shape)
+    _check_supported(opts, shape, len(con_idx))
+    qp = QPBatchDS(*(a.to(dev) for a in qp))
+    if warm is not None:
+        warm = WarmStartDS(*(a.to(dev) for a in warm))
+    t0 = time.perf_counter()
+    clock = StageClock(stage_times, dev)
+    prep = _prepare_reduced(
+        qp, warm, shape, opts, warm_start, con_idx, clock=clock
+    )
+    sync(dev)
+    t1 = time.perf_counter()
+    sol, ws = _iterate_reduced(qp, prep, shape, opts, con_idx, clock=clock)
+    sync(dev)
+    t2 = time.perf_counter()
+    return stamp_solution_times(sol, t2 - t0, t1 - t0), ws

@@ -1,0 +1,299 @@
+"""Batched dense linear algebra of the reduced engine's operator build.
+
+Port of the hybrid-factorization part of `fcc_qp_tpu/ops/ds_linalg.py`.
+The name is kept so each function's counterpart is easy to find, but
+nothing here is double-single: where the JAX package carries f32 hi/lo
+pairs (because the TPU has no f64 ALU) this module computes in native
+f64, and where the JAX package is plain f32 (the Newton-Schulz inverse
+seeds) it stays f32 with full-precision matmuls (TF32 is pinned off at
+package import; a 10-bit-mantissa product leaves the seeds
+non-contracting, the same trap as the TPU's single bf16 pass).
+
+Layouts: problem data and ADMM-operator blocks are batch-LAST like the
+JAX package's (``(n, m, B)`` matrices, ``(n, B)`` vectors). The dense
+KKT matrices and f32 seeds that only feed batched matmuls are kept
+batch-LEADING ``(B, N, N)``, which is what `torch.matmul` batches over
+(the JAX package moves them to batch-leading around each matmul too).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def matvec_ds(F: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Mat-vec, batch-last: F (n_j, n_i, B) j-major, v (n_j, B) ->
+    (n_i, B) with ``y[i] = sum_j F[j, i] v[j]``."""
+    return torch.einsum("jib,jb->ib", F, v)
+
+
+def transpose_ds(X: torch.Tensor) -> torch.Tensor:
+    """Swap the two leading (feature) axes; the batch axis stays last."""
+    return X.transpose(0, 1)
+
+
+def _rho_vec(rho: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-coordinate penalty, batch-leading (B, n): rho may be (B,)
+    uniform or (n, B) per-coordinate (partial splitting)."""
+    if rho.dim() == 1:
+        return rho[:, None].expand(rho.shape[0], n)
+    return rho.transpose(0, 1)
+
+
+def assemble_kkt_ds(Q: torch.Tensor, A: torch.Tensor, rho: torch.Tensor):
+    """Full KKT matrix [[Q + diag(rho), A'],[A, 0]] in the dtype of Q
+    (f64 here), from batch-last Q (n, n, B) / A (m, n, B); returned
+    batch-LEADING (B, n+m, n+m). rho (B,) uniform or (n, B)."""
+    n, _, B = Q.shape
+    m = A.shape[0]
+    Qb = Q.permute(2, 0, 1)
+    Ab = A.permute(2, 0, 1)
+    M = Q.new_zeros((B, n + m, n + m))
+    M[:, :n, :n] = Qb
+    idx = torch.arange(n, device=Q.device)
+    M[:, idx, idx] += _rho_vec(rho, n).to(Q.dtype)
+    M[:, :n, n:] = Ab.transpose(1, 2)
+    M[:, n:, :n] = Ab
+    return M
+
+
+# ---------------------------------------------------------------------------
+# hybrid f32-seed factorization: batched f32 matmuls build an inverse seed
+# of the KKT, then f64 refinement of only the blocks the ADMM loop needs.
+# ---------------------------------------------------------------------------
+
+
+def spd_inverse_ns_f32(H: torch.Tensor, iters: int = 30) -> torch.Tensor:
+    """Batched f32 SPD inverse by Newton-Schulz iteration (batch-leading
+    (B, n, n)): X0 = H' / ||H||_F^2, then X <- X (2I - H X). Linear until
+    the residual drops below ~1, then quadratic."""
+    n = H.shape[-1]
+    fro2 = (H * H).sum(dim=(-1, -2))
+    X = H.transpose(-1, -2) * (1.0 / torch.clamp_min(fro2, 1e-30))[:, None, None]
+    eye2 = 2.0 * torch.eye(n, dtype=H.dtype, device=H.device)
+    for _ in range(iters):
+        X = X @ (eye2 - H @ X)
+    return X
+
+
+def _resid_inf(P: torch.Tensor, eye: torch.Tensor) -> torch.Tensor:
+    """``||I - M X||_inf`` from P = M X; non-finite products report inf."""
+    r = (P - eye).abs().sum(dim=-1).amax(dim=-1)
+    return torch.where(torch.isfinite(r), r, torch.full_like(r, float("inf")))
+
+
+def _ns_polish_guarded(X: torch.Tensor, Mb: torch.Tensor, steps: int):
+    """Guarded Newton-Schulz polish of an f32 inverse iterate against Mb
+    (batch-leading). Keeps the best-residual iterate per instance (NS
+    squares the residual UP when >= 1) and returns ``(X_best, resid)``."""
+    N = Mb.shape[-1]
+    eye = torch.eye(N, dtype=Mb.dtype, device=Mb.device)
+    eye2 = 2.0 * eye
+    P = Mb @ X
+    r_best = _resid_inf(P, eye)
+    X_best = X
+    for _ in range(steps):
+        X = X @ (eye2 - P)
+        P = Mb @ X
+        r = _resid_inf(P, eye)
+        better = r < r_best
+        X_best = torch.where(better[:, None, None], X, X_best)
+        r_best = torch.minimum(r, r_best)
+    return X_best, r_best
+
+
+def kkt_inverse_f32_seed(
+    Q: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, delta: float = 1e-2
+):
+    """f32 inverse SEED of the KKT [[Q + diag(rho), A'],[A, 0]].
+
+    Q (n, n, B), A (m, n, B) batch-last (any float dtype; rounded to
+    f32), rho (B,) or (n, B) f32. Returns ``(X, resid)``: X (B, N, N) f32
+    batch-LEADING, and the per-instance inf-norm estimate of ``I - M X``
+    against the TRUE KKT, so callers can route non-contracting instances
+    to a robust fallback.
+
+    The Schur route inverts a DELTA-REGULARIZED KKT (the (1,1) block of
+    an OSC problem can be near-singular while the full KKT is not) with
+    two Newton-Schulz SPD inverses, then three guarded NS steps against
+    the true KKT polish the delta away.
+    """
+    n, _, B = Q.shape
+    Qb = Q.permute(2, 0, 1).float()
+    Ab = A.permute(2, 0, 1).float()
+    dvec = _rho_vec(rho, n).float()
+    eye_n = torch.eye(n, dtype=torch.float32, device=Q.device)
+    H = Qb + dvec[:, :, None] * eye_n
+    dscale = delta * H.abs().amax(dim=(-1, -2))
+    H = H + dscale[:, None, None] * eye_n
+
+    Hinv = spd_inverse_ns_f32(H)
+    At = Ab.transpose(-1, -2)
+    W = Hinv @ At                        # (B, n, m)
+    S = Ab @ W                           # (B, m, m)
+    Sinv = spd_inverse_ns_f32(S)
+    T = Sinv @ W.transpose(-1, -2)       # (B, m, n)
+    F = Hinv - W @ T
+    G = T.transpose(-1, -2)
+    X = torch.cat(
+        [torch.cat([F, G], dim=-1), torch.cat([T, -Sinv], dim=-1)], dim=-2
+    )
+
+    m = Ab.shape[1]
+    Mb = Qb.new_zeros((B, n + m, n + m))
+    Mb[:, :n, :n] = Qb + dvec[:, :, None] * eye_n
+    Mb[:, :n, n:] = At
+    Mb[:, n:, :n] = Ab
+    return _ns_polish_guarded(X, Mb, steps=3)
+
+
+def refine_inverse_columns_ds(
+    X32: torch.Tensor, M: torch.Tensor, cols, passes: int = 2
+) -> torch.Tensor:
+    """Selected columns of M^{-1} to f64 accuracy from an f32 seed.
+
+    Per pass the residual R = E_cols - M C is computed in f64 (it carries
+    the correction) and the correction X32 @ R runs as one f32 matmul.
+    X32 (B, N, N) f32, M (B, N, N) f64 -> C (B, N, k) f64.
+    """
+    cols_t = torch.as_tensor(np.asarray(cols), device=M.device)
+    N = M.shape[-1]
+    C = X32[:, :, cols_t].double()
+    E = torch.eye(N, dtype=M.dtype, device=M.device)[:, cols_t]
+    for _ in range(passes):
+        R = E - M @ C
+        C = C + (X32 @ R.float()).double()
+    return C
+
+
+def solve_from_seed_ds(
+    X32: torch.Tensor, M: torch.Tensor, r: torch.Tensor, passes: int = 2
+) -> torch.Tensor:
+    """f64-accurate solve M x = r via the f32 inverse seed + iterative
+    refinement with f64 residuals. X32/M batch-leading (B, N, N); r and
+    the result batch-last (N, B)."""
+
+    def apply32(v: torch.Tensor) -> torch.Tensor:
+        return (X32 @ v.float().transpose(0, 1)[:, :, None])[:, :, 0].T
+
+    x = apply32(r).double()
+    for _ in range(passes):
+        resid = r - (M @ x.T[:, :, None])[:, :, 0].T
+        x = x + apply32(resid).double()
+    return x
+
+
+# ---------------------------------------------------------------------------
+# f64 Schur-Cholesky fallback for instances the hybrid seed cannot serve
+# (the JAX package's all-ds Schur route, `kkt_inverse_blocks_refined_ds`).
+# ---------------------------------------------------------------------------
+
+
+def _jacobi_kkt_scales(H: torch.Tensor, A: torch.Tensor, sweeps: int = 3):
+    """Ruiz equilibration scales (d (B, n), e (B, m)) of [[H, A'],[A, 0]]
+    from batch-leading H (B, n, n), A (B, m, n): each sweep divides by
+    the sqrt of the scaled column max-abs norm over the full KKT column."""
+    B, n, _ = H.shape
+    m = A.shape[1]
+    absH, absA = H.abs(), A.abs()
+    d = H.new_ones((B, n))
+    e = H.new_ones((B, m))
+    for _ in range(sweeps):
+        ch = (absH * d[:, None, :]).amax(dim=2) * d
+        if m:
+            ca = (absA * e[:, :, None]).amax(dim=1) * d
+            c = torch.maximum(ch, ca)
+            g = (absA * d[:, None, :]).amax(dim=2) * e
+            e = e * torch.where(g > 0, torch.rsqrt(torch.clamp_min(g, 1e-30)), 1.0)
+        else:
+            c = ch
+        d = d * torch.where(c > 0, torch.rsqrt(torch.clamp_min(c, 1e-30)), 1.0)
+    return d, e
+
+
+def _chol_regularized(H: torch.Tensor):
+    """Batched Cholesky with escalating relative diagonal shifts; the
+    last level (2n) makes the shifted matrix diagonally dominant, so a
+    factor always exists. Pivot-based detection: a factor whose squared
+    pivots fall below 1e-11 * scale counts as failed. Returns
+    ``(L, shifted)``."""
+    B, n, _ = H.shape
+    scale = torch.clamp_min(H.abs().amax(dim=(-1, -2)), 1.0)
+    eye = torch.eye(n, dtype=H.dtype, device=H.device)
+
+    def factor(shift):
+        L, info = torch.linalg.cholesky_ex(H + shift[:, None, None] * eye)
+        dg = torch.diagonal(L, dim1=-2, dim2=-1)
+        ok = (
+            (info == 0)
+            & torch.isfinite(L).all(dim=(-1, -2))
+            & (dg * dg > 1e-11 * scale[:, None]).all(dim=-1)
+        )
+        return L, ok
+
+    L, ok = factor(torch.zeros_like(scale))
+    shifted = torch.zeros_like(ok)
+    for delta in (1e-10, 1e-8, 1e-6, 1e-4, 1e-2, 2.0 * n):
+        need = ~ok
+        if not bool(need.any()):
+            break
+        L2, ok2 = factor(torch.where(need, delta * scale, 0.0))
+        L = torch.where(need[:, None, None], L2, L)
+        ok = ok | (need & ok2)
+        shifted = shifted | need
+    return L, shifted
+
+
+def _kkt_inverse_core(H: torch.Tensor, A: torch.Tensor, refine_steps: int):
+    """Full inverse of [[H, A'],[A, 0]] (batch-leading, f64) by Schur
+    factorization plus fixed-preconditioner refinement against the true
+    KKT; extra passes when a shift was needed."""
+    B, n, _ = H.shape
+    m = A.shape[1]
+    L, sh_H = _chol_regularized(H)
+    Hinv = torch.cholesky_inverse(L)
+    W = Hinv @ A.transpose(1, 2)                     # (B, n, m)
+    S = A @ W
+    Ls, sh_S = _chol_regularized(S)
+    Sinv = torch.cholesky_inverse(Ls)
+    T = Sinv @ W.transpose(1, 2)                     # (B, m, n)
+    X = torch.cat(
+        [torch.cat([Hinv - W @ T, T.transpose(1, 2)], dim=-1),
+         torch.cat([T, -Sinv], dim=-1)],
+        dim=-2,
+    )
+    M = H.new_zeros((B, n + m, n + m))
+    M[:, :n, :n] = H
+    M[:, :n, n:] = A.transpose(1, 2)
+    M[:, n:, :n] = A
+    eye = torch.eye(n + m, dtype=H.dtype, device=H.device)
+    steps = refine_steps + (6 if bool((sh_H | sh_S).any()) else 0)
+    X0 = X
+    for _ in range(steps):
+        X = X + X0 @ (eye - M @ X)
+    return X
+
+
+def kkt_inverse_blocks_refined_ds(
+    Q: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, refine_steps: int = 1
+):
+    """Inverse blocks (F, G) of [[Q + diag(rho), A'],[A, 0]]: F =
+    M^{-1}[:n, :n], G = M^{-1}[:n, n:], batch-last like the inputs
+    (Q (n, n, B), A (m, n, B), f64). Internal Jacobi equilibration keeps
+    the route robust to unequilibrated data; this is the fallback for
+    instances whose f32 seed did not contract."""
+    n = Q.shape[0]
+    Hb = Q.permute(2, 0, 1).clone()
+    idx = torch.arange(n, device=Q.device)
+    Hb[:, idx, idx] += _rho_vec(rho, n).to(Q.dtype)
+    Ab = A.permute(2, 0, 1)
+    d, e = _jacobi_kkt_scales(Hb, Ab)
+    Hs = d[:, :, None] * Hb * d[:, None, :]
+    As = e[:, :, None] * Ab * d[:, None, :]
+    Xs = _kkt_inverse_core(Hs, As, refine_steps)
+    p = torch.cat([d, e], dim=1)
+    X = p[:, :, None] * Xs * p[:, None, :]
+    F = X[:, :n, :n].permute(1, 2, 0)
+    G = X[:, :n, n:].permute(1, 2, 0)
+    return F, G

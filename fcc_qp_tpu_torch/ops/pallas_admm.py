@@ -1,0 +1,351 @@
+"""Fused ADMM iteration chunks: CUDA kernels and their plain versions.
+
+Port of `fcc_qp_tpu/ops/pallas_admm.py` (the module name is kept so the
+counterpart is easy to find; nothing here is Pallas):
+
+* `admm_chunk_f64` replaces `admm_chunk_pallas` (double-single on the
+  TPU, native f64 here), the endgame chunk, with the optional
+  primal-increment gate ``inc_gate``;
+* `admm_chunk_f32` replaces `admm_chunk_pallas32`, the plain-f32
+  approach-phase chunk.
+
+Both are hand-written CUDA C++ for sm_90a in `csrc/admm_chunk.cu`, built
+with nvcc into a shared library with a plain C interface at first use
+(`build_kernels`) and called through ctypes on PyTorch's current stream.
+Beside each is its plain PyTorch version (`admm_chunk_f64_plain`,
+`admm_chunk_f32_plain`): the same iteration in tensor ops, with the
+mat-vec accumulated in the same j order and no fused multiply-add. A
+wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises.
+
+Differences from the Pallas kernels, by design:
+
+* the state is the reduced engine's own ``(xc, s, mu, v)`` — the Pallas
+  wrappers take the box and cone duals split and lb/ub padded with
+  -+inf on the cone rows, which computes the same function;
+* the residual norms of an instance that does no iteration in the chunk
+  are carried through from the inputs (the XLA chunk bodies' semantics;
+  the Pallas kernels restart them from zero in every chunk);
+* any batch size works: no padding to a 128-instance tile.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import subprocess
+import time
+
+import torch
+
+from fcc_qp_tpu_torch.ops.projections import project_cone_ds, sqrt_rn
+
+_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = pathlib.Path(__file__).resolve().parent.parent / "_build"
+_SOURCE = _CSRC / "admm_chunk.cu"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    return str(path) if path.exists() else "nvcc"
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Compile `csrc/admm_chunk.cu` (once per source content) into
+    ``_build/`` and load it. Records the compile seconds and the
+    compiler's register/spill report in `build_info`."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    src = _SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    so = _BUILD / f"libadmm_chunk_{tag}.so"
+    t0 = time.perf_counter()
+    if not so.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+            )
+        os.replace(tmp, so)
+        build_info["log"] = proc.stderr
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["library"] = str(so)
+    lib = ctypes.CDLL(str(so))
+    common = [ctypes.c_void_p]
+    lib.admm_chunk_f64.argtypes = common + [
+        ctypes.c_double, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.admm_chunk_f64.restype = ctypes.c_int
+    lib.admm_chunk_f32.argtypes = common + [
+        ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.admm_chunk_f32.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch versions
+# --------------------------------------------------------------------------
+
+
+def _chunk_plain(
+    Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+    x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
+    kb, K, max_iter, weights, inc_gate,
+):
+    """Up to K masked ADMM iterations in the dtype of the state."""
+    k = x.shape[0]
+    nc = k - kb
+    dt = x.dtype
+    eps_b = torch.tensor(eps_bound, dtype=dt)
+    eps_f = torch.tensor(eps_fcone, dtype=dt)
+    wk = weights
+    zeros_b = torch.zeros_like(rho)
+    done = done.clone()
+    for _ in range(K):
+        active = ~done & (itv < max_iter)
+        if not bool(active.any()):
+            break
+        s_prev = s
+        v_new = s_prev - mu
+        y = Fj[0] * v_new[0]
+        for j in range(1, k):
+            y = y + Fj[j] * v_new[j]
+        xn = x_const + rho * y
+        t = xn + mu
+        parts = []
+        if kb:
+            parts.append(torch.clamp(t[:kb], lb, ub))
+        if nc:
+            parts.append(project_cone_ds(t[kb:], mu_f))
+        s_new = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        res = xn - s_new
+        mu_new = mu + res
+        wres = res.abs() * wk
+        n_xrn = wres[:kb].amax(dim=0) if kb else zeros_b
+        n_lrn = wres[kb:].amax(dim=0) if nc else zeros_b
+        dprim = res * wk
+        dchange = (s_new - s_prev) * wk
+        n_prim = sqrt_rn((dprim * dprim).sum(dim=0))
+        n_dual = rho * sqrt_rn((dchange * dchange).sum(dim=0))
+        conv = (n_lrn < eps_f) & (n_xrn < eps_b)
+        if inc_gate:
+            winc = (xn - x).abs() * wk
+            if kb:
+                conv = conv & (winc[:kb].amax(dim=0) < eps_b)
+            if nc:
+                conv = conv & (winc[kb:].amax(dim=0) < eps_f)
+        a2 = active[None, :]
+        x = torch.where(a2, xn, x)
+        s = torch.where(a2, s_new, s)
+        mu = torch.where(a2, mu_new, mu)
+        v = torch.where(a2, v_new, v)
+        xrn = torch.where(active, n_xrn, xrn)
+        lrn = torch.where(active, n_lrn, lrn)
+        prim = torch.where(active, n_prim, prim)
+        dual = torch.where(active, n_dual, dual)
+        n_iter = torch.where(conv & active, itv, n_iter)
+        itv = torch.where(active, itv + 1, itv)
+        done = done | (conv & active)
+    return x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual
+
+
+def admm_chunk_f64_plain(
+    Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+    x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
+    *, kb, K, max_iter, weights, inc_gate=False,
+):
+    """Plain PyTorch version of `admm_chunk_f64` (same arguments and
+    results)."""
+    return _chunk_plain(
+        Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+        x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
+        kb, K, max_iter, weights, inc_gate,
+    )
+
+
+def admm_chunk_f32_plain(
+    Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+    x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
+    *, kb, K, max_iter, weights,
+):
+    """Plain PyTorch version of `admm_chunk_f32` (same arguments and
+    results)."""
+    return _chunk_plain(
+        Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+        x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
+        kb, K, max_iter, weights, False,
+    )
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+
+def _check(name, t, shape, dtype, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(fn_name, dtype, args, kb, K, max_iter, inc_gate):
+    (Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+     x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual, weights) = args
+    k, B = x.shape
+    nc = k - kb
+    if not (0 <= kb <= k and nc % 3 == 0 and 1 <= k <= 64):
+        raise ValueError(f"unsupported split k={k}, kb={kb} (k <= 64)")
+    dev = x.device
+    i32 = torch.int32
+    done_i = done.to(i32).contiguous()
+    # kernels index the cone and box arrays from their own base pointers;
+    # give empty segments a valid one-element buffer
+    lb_ = lb if kb else torch.zeros((1, B), dtype=dtype, device=dev)
+    ub_ = ub if kb else torch.zeros((1, B), dtype=dtype, device=dev)
+    mf_ = mu_f if nc else torch.zeros((1, B), dtype=dtype, device=dev)
+    specs = [
+        ("Fj", Fj, (k, k, B), dtype), ("x_const", x_const, (k, B), dtype),
+        ("lb", lb_, (max(kb, 1), B), dtype),
+        ("ub", ub_, (max(kb, 1), B), dtype),
+        ("mu_f", mf_, (max(nc // 3, 1), B), dtype),
+        ("weights", weights, (k, B), dtype), ("rho", rho, (B,), dtype),
+        ("x", x, (k, B), dtype), ("s", s, (k, B), dtype),
+        ("mu", mu, (k, B), dtype), ("v", v, (k, B), dtype),
+        ("done", done_i, (B,), i32), ("n_iter", n_iter, (B,), i32),
+        ("itv", itv, (B,), i32), ("xrn", xrn, (B,), dtype),
+        ("lrn", lrn, (B,), dtype), ("prim", prim, (B,), dtype),
+        ("dual", dual, (B,), dtype),
+    ]
+    for name, t, shp, dt in specs:
+        _check(name, t, shp, dt, dev)
+    outs = [
+        torch.empty((k, B), dtype=dtype, device=dev) for _ in range(4)
+    ] + [
+        torch.empty((B,), dtype=i32, device=dev) for _ in range(3)
+    ] + [
+        torch.empty((B,), dtype=dtype, device=dev) for _ in range(4)
+    ]
+    ptrs = (ctypes.c_void_p * 29)(
+        *[t.data_ptr() for _, t, _, _ in specs],
+        *[t.data_ptr() for t in outs],
+    )
+    lib = build_kernels()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if fn_name == "admm_chunk_f64":
+        err = lib.admm_chunk_f64(
+            ptrs, float(eps_bound), float(eps_fcone), B, k, kb, K,
+            max_iter, int(bool(inc_gate)), stream,
+        )
+    else:
+        err = lib.admm_chunk_f32(
+            ptrs, float(eps_bound), float(eps_fcone), B, k, kb, K,
+            max_iter, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
+    xo, so_, muo, vo, doneo, nio, itvo, xrno, lrno, primo, dualo = outs
+    return xo, so_, muo, vo, doneo != 0, nio, itvo, xrno, lrno, primo, dualo
+
+
+def admm_chunk_f64(
+    Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+    x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
+    *, kb, K, max_iter, weights, inc_gate=False,
+):
+    """Run up to K fused f64 ADMM iterations per instance (the endgame
+    chunk, replacing `fcc_qp_tpu.ops.pallas_admm.admm_chunk_pallas`).
+
+    All arrays batch-last: Fj (k, k, B) j-major operator, x_const / x /
+    s / mu / v / weights (k, B), lb / ub (kb, B) box bounds, mu_f
+    (nc/3, B), rho (B,), all f64; done (B,) bool; n_iter / itv (B,)
+    int32; xrn / lrn / prim / dual (B,) f64 residuals carried for idle
+    instances. ``itv`` counts iterations per instance across chunks and
+    phases; n_iter records it at the converging iteration.
+
+    Returns ``(x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual)``.
+    CPU tensors take `admm_chunk_f64_plain`; CUDA tensors launch the
+    kernel (counted in ``admm_chunk_f64.launches``) or raise.
+    """
+    if x.device.type == "cpu":
+        return admm_chunk_f64_plain(
+            Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+            x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
+            kb=kb, K=K, max_iter=max_iter, weights=weights,
+            inc_gate=inc_gate,
+        )
+    out = _launch(
+        "admm_chunk_f64", torch.float64,
+        (Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+         x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual, weights),
+        kb, K, max_iter, inc_gate,
+    )
+    admm_chunk_f64.launches += 1
+    return out
+
+
+def admm_chunk_f32(
+    Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+    x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
+    *, kb, K, max_iter, weights,
+):
+    """Run up to K fused plain-f32 ADMM iterations per instance (the
+    approach-phase chunk, replacing
+    `fcc_qp_tpu.ops.pallas_admm.admm_chunk_pallas32`). Same arguments
+    and results as `admm_chunk_f64` with f32 in place of f64 and no
+    increment gate; the convergence test reads ``eps_bound`` /
+    ``eps_fcone`` (the engine passes its coarse switch tolerance).
+    Launches are counted in ``admm_chunk_f32.launches``."""
+    if x.device.type == "cpu":
+        return admm_chunk_f32_plain(
+            Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+            x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
+            kb=kb, K=K, max_iter=max_iter, weights=weights,
+        )
+    out = _launch(
+        "admm_chunk_f32", torch.float32,
+        (Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+         x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual, weights),
+        kb, K, max_iter, False,
+    )
+    admm_chunk_f32.launches += 1
+    return out
+
+
+admm_chunk_f64.launches = 0
+admm_chunk_f32.launches = 0
+
+KERNELS = (admm_chunk_f64, admm_chunk_f32)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

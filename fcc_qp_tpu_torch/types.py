@@ -1,0 +1,70 @@
+"""Result types of a solve (port of `fcc_qp_tpu/types.py`).
+
+  * `FCCQPSolveStatus` <- the reference status enum, plus
+    ``kFactorizationFailed``
+  * `FCCQPDetails`     <- the reference details struct, plus the
+    equality residual and the per-phase telemetry of the JAX package
+  * `FCCQPSolution`    <- the reference solution struct
+
+The JAX package registers these as pytrees; here they are plain frozen
+dataclasses of tensors. Every tensor field is batch-LEADING: ``(B,)``
+for the details and ``(B, n)`` for ``z``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import torch
+
+
+class FCCQPSolveStatus(enum.IntEnum):
+    kSuccess = 0
+    kMaxIterations = 1
+    # Extension beyond the reference enum: an instance whose final
+    # primal is equality-infeasible (see `FCCQPDetails.equality_viol`)
+    # can only come from a broken factorization chain, so it never reads
+    # kSuccess.
+    kFactorizationFailed = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class FCCQPDetails:
+    """Per-solve diagnostics, one entry per instance. Field names match
+    the reference struct; ``eps_bounds`` / ``eps_friction_cone`` are the
+    reference Python binding's aliases of the residuals."""
+
+    n_iter: torch.Tensor
+    admm_residual_bounds: torch.Tensor
+    admm_residual_friction_cone: torch.Tensor
+    solve_time: torch.Tensor
+    factorization_time: torch.Tensor
+    bounds_viol: torch.Tensor
+    friction_cone_viol: torch.Tensor
+    solve_status: torch.Tensor  # int32; values from FCCQPSolveStatus
+    # ``max_i |A_eq x - b_eq|_i`` in unscaled units.
+    equality_viol: torch.Tensor
+    # per-phase telemetry:
+    #   n_iter_f32:      plain-f32 approach + polish-round iterations
+    #   n_iter_ds:       high-precision (f64 here) endgame iterations
+    #   polish_attempts: polish attempts run for this instance
+    #   polish_accepted: 1 if the final point came from an accepted polish
+    n_iter_f32: torch.Tensor
+    n_iter_ds: torch.Tensor
+    polish_attempts: torch.Tensor
+    polish_accepted: torch.Tensor
+
+    @property
+    def eps_bounds(self):
+        return self.admm_residual_bounds
+
+    @property
+    def eps_friction_cone(self):
+        return self.admm_residual_friction_cone
+
+
+@dataclasses.dataclass(frozen=True)
+class FCCQPSolution:
+    details: FCCQPDetails
+    z: torch.Tensor  # (B, n) f64

@@ -1,0 +1,73 @@
+"""Device synchronization and timing (port of `fcc_qp_tpu/utils/timing.py`).
+
+PyTorch launches CUDA work asynchronously: a host clock read right after
+a call measures the enqueue, not the work. `sync` is the barrier every
+host-clock span must end in, and `cuda_span` times a region with CUDA
+events on the current stream.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+
+import torch
+
+
+def sync(device=None) -> None:
+    """Block until all queued work on ``device`` has finished (no-op for
+    the CPU, whose operations are synchronous)."""
+    if device is None or torch.device(device).type == "cuda":
+        if torch.cuda.is_available():
+            torch.cuda.synchronize(device)
+
+
+def stamp_solution_times(sol, solve_time: float, factor_time: float):
+    """Broadcast host-measured per-phase wall times into a solution's
+    details (every instance of a batched solve shares the wall clock)."""
+    like = sol.details.admm_residual_bounds
+    det = dataclasses.replace(
+        sol.details,
+        solve_time=torch.full_like(like, solve_time, dtype=torch.float64),
+        factorization_time=torch.full_like(
+            like, factor_time, dtype=torch.float64
+        ),
+    )
+    return type(sol)(details=det, z=sol.z)
+
+
+@contextlib.contextmanager
+def cuda_span(out: dict, key: str):
+    """Time the enclosed region with CUDA events on the current stream;
+    writes milliseconds into ``out[key]`` on exit (synchronizes)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    end.synchronize()
+    out[key] = start.elapsed_time(end)
+
+
+class StageClock:
+    """Accumulates synchronized wall seconds per named stage of a solve
+    into ``out`` (`mark` closes the stage that ran since the previous
+    mark). With ``out=None`` it neither synchronizes nor records, so an
+    untimed solve keeps its asynchronous launches."""
+
+    def __init__(self, out=None, device=None):
+        self.out, self.device = out, device
+        self.t = None
+        if out is not None:
+            sync(device)
+            self.t = time.perf_counter()
+
+    def mark(self, stage: str) -> None:
+        if self.out is None:
+            return
+        sync(self.device)
+        now = time.perf_counter()
+        self.out[stage] = self.out.get(stage, 0.0) + (now - self.t)
+        self.t = now
+

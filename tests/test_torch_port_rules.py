@@ -1,0 +1,134 @@
+"""Rules of the port (`fcc_qp_tpu_torch`): it imports neither JAX nor the
+JAX package, pins full-f32 matmuls, runs on the card unless asked for
+the CPU, rejects the options this slice does not cover, sends CPU
+tensors to the kernels' plain versions without launching anything, and
+`chip_smoke.py` refuses to report without a card."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import fcc_qp_tpu_torch as T
+from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_batch
+from fcc_qp_tpu_torch.ops import pallas_admm as tk
+from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SUBPROCESS_SOLVE = """
+import sys
+import fcc_qp_tpu_torch as T
+from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_batch
+from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
+qp = T.to_ds_batch(stack_qp_dicts(generate_osc_batch(CASSIE, 4, seed=0)),
+                   device="cpu")
+opts = T.FCCQPOptions(max_iter=3000, rho=0.05, eps_fcone=1e-6,
+                      eps_bound=1e-6, presolve="operator", scaling=True,
+                      splitting="constrained", polish=True, polish_rounds=4)
+sol, _ = T.solve_batched_ds(qp, CASSIE.shape, opts, device="cpu")
+assert sol.z.shape == (4, 60)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "fcc_qp_tpu.")))
+print("LEAKED", bad)
+"""
+
+
+def test_package_imports_no_jax_and_solves_on_cpu():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", _SUBPROCESS_SOLVE], capture_output=True,
+        text=True, env=env, cwd=ROOT, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_tf32_pinned_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    stacked = stack_qp_dicts(generate_osc_batch(CASSIE, 2, seed=0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.to_ds_batch(stacked)
+    qp = T.to_ds_batch(stacked, device="cpu")
+    opts = T.FCCQPOptions(presolve="operator", scaling=True,
+                          splitting="constrained")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.solve_batched_ds(qp, CASSIE.shape, opts)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(adaptive_rho=True), dict(alpha=1.5), dict(kkt_factor="ds"),
+    dict(splitting="full"), dict(presolve="exact"),
+])
+def test_uncovered_options_raise(kw):
+    base = dict(presolve="operator", scaling=True, splitting="constrained")
+    qp = T.to_ds_batch(
+        stack_qp_dicts(generate_osc_batch(CASSIE, 2, seed=0)), device="cpu"
+    )
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.solve_batched_ds(qp, CASSIE.shape, T.FCCQPOptions(**{**base, **kw}),
+                           device="cpu")
+
+
+def _chunk_inputs(dtype, B=8, k=7, kb=4, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    F = rng.normal(size=(k, k, 1)) * 0.1 + np.eye(k)[:, :, None]
+    args = (
+        t(np.repeat(F, B, axis=2)), t(rng.normal(size=(k, B))),
+        t(-np.ones((kb, B))), t(np.ones((kb, B))),
+        t(np.full(((k - kb) // 3, B), 0.8)), t(np.full(B, 0.05)),
+        1e-2, 1e-2,
+        t(rng.normal(size=(k, B))), t(rng.normal(size=(k, B))),
+        t(rng.normal(size=(k, B)) * 0.1), t(np.zeros((k, B))),
+        torch.zeros(B, dtype=torch.bool),
+        torch.full((B,), 100, dtype=torch.int32),
+        torch.zeros(B, dtype=torch.int32),
+        *(t(np.zeros(B)) for _ in range(4)),
+    )
+    return args, dict(kb=kb, K=5, max_iter=100, weights=t(np.ones((k, B))))
+
+
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+def test_cpu_tensors_take_plain_version(prec):
+    dtype = torch.float64 if prec == "f64" else torch.float32
+    wrapper = getattr(tk, f"admm_chunk_{prec}")
+    plain = getattr(tk, f"admm_chunk_{prec}_plain")
+    args, kw = _chunk_inputs(dtype)
+    tk.reset_launch_counts()
+    got = wrapper(*args, **kw)
+    want = plain(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert all(fn.launches == 0 for fn in tk.KERNELS)
+    assert int(got[6].min()) == 5  # every instance ran the whole chunk
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, cwd=ROOT, timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    # a directory holding chip_smoke.py and nothing else of the repo
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    out = subprocess.run(
+        [sys.executable, str(tmp_path / "chip_smoke.py")],
+        capture_output=True, text=True, cwd=tmp_path, timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
