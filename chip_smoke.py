@@ -9,6 +9,7 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
 
 1. Build both ADMM chunk kernels from `fcc_qp_tpu_torch/csrc` (nvcc,
    sm_90a) and print the build seconds, the compiler's register report
+   (which must show no stack frame and no spills in any instantiation)
    and the card's name and power limit.
 2. Main path: a cold batched Cassie solve, B=8192
    (`generate_osc_batch(CASSIE, 8192, seed=0)` -> `to_ds_batch` ->
@@ -22,12 +23,25 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    (the two-phase path), which sends every instance through the f64
    endgame kernel. Checks: no kFactorizationFailed, kSuccess >= 90%,
    residuals <= 1e-6 on kSuccess; both kernels launched over 2 and 3.
-4. Kernel vs plain on the card: the inputs of each kernel's first chunk
-   in phase 3 go through the kernel and its plain PyTorch version;
-   done / n_iter / itv must be equal and the state within 1e-6 (f32) or
-   1e-12 (f64). Both are timed with CUDA events.
-5. One JSON line with a record per kernel, the `nvidia-smi` line, and
-   the final JSON status line.
+4. Kernel vs plain on the card, in three cases per kernel: the inputs
+   of its first chunk in phase 3 (every instance active), of its last
+   chunk in a recorded bench-flag solve (the stragglers), and of its
+   first chunk in a two-phase solve of `generate_osc_batch(HUMANOID,
+   1024, seed=0)` (k = 47 constrained rows, the kernels' two-slot
+   layout; only agreement is checked there). Each case goes through the
+   kernel and its plain PyTorch version: done / n_iter / itv must be
+   equal and the state within 1e-6 (f32) or 1e-12 (f64). Both are timed
+   with CUDA events (`time_cuda`), and each case's bound is computed
+   from its inputs (`chunk_bound`).
+5. One JSON line with a record per kernel (the first chunk's numbers
+   under the plain keys, the straggler chunk's under ``*_tail``, the
+   humanoid's under ``*_k47``; ``ms_idle`` is a launch on the straggler
+   inputs with every instance done), the `nvidia-smi` line, and the
+   final JSON status line.
+
+Also printed: the bench solve's host seconds per chunk (the approach and
+endgame stage seconds over their launches), beside the kernels' own
+time per launch.
 """
 
 from __future__ import annotations
@@ -43,6 +57,8 @@ B = 8192
 # NVIDIA H100 SXM data sheet: HBM3 rate, FP64 and FP32 vector peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f64": 34e12, "f32": 67e12}
+# about 0.5 ms of spin per timed call at the H100's 1.98 GHz boost clock
+SPIN_CYCLES_PER_CALL = 1_000_000
 
 
 def log(msg: str) -> None:
@@ -95,27 +111,64 @@ def summarize(tag, sol, launches, wall, stages):
 
 class Recorder:
     """Wraps a kernel wrapper in the engine's namespace and keeps a copy
-    of the inputs of its first call."""
+    of the inputs of its first and of its last call."""
 
     def __init__(self, fn):
         self.fn = fn
         self.first = None
+        self.last = None
 
     def __call__(self, *args, **kw):
         import torch
 
+        clone = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
+        self.last = (
+            tuple(clone(a) for a in args),
+            {k: clone(v) for k, v in kw.items()},
+        )
         if self.first is None:
-            clone = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
-            self.first = (
-                tuple(clone(a) for a in args),
-                {k: clone(v) for k, v in kw.items()},
-            )
+            self.first = self.last
         return self.fn(*args, **kw)
 
 
+def recorded_solve(engine, solve):
+    """Runs ``solve()`` with both kernel wrappers of the engine wrapped in
+    a `Recorder`; returns ``(result, {name: recorder})``."""
+    rec = {name: Recorder(getattr(engine, name))
+           for name in ("admm_chunk_f32", "admm_chunk_f64")}
+    for name, r in rec.items():
+        setattr(engine, name, r)
+    try:
+        out = solve()
+    finally:
+        for name, r in rec.items():
+            setattr(engine, name, r.fn)
+    return out, rec
+
+
+def check_ptxas(log_text: str) -> None:
+    """Every kernel instantiation keeps its state in registers: the
+    compiler reports no stack frame and no spills."""
+    import re
+
+    props = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads", log_text)
+    check(len(props) > 0, "no ptxas resource report in the build log")
+    for frame, st, ld in props:
+        check((frame, st, ld) == ("0", "0", "0"),
+              f"ptxas: {frame} bytes stack frame, {st} / {ld} bytes spill "
+              f"stores / loads")
+
+
 def time_cuda(fn, reps):
-    """Milliseconds per call of ``fn`` over ``reps`` calls after one
-    warm-up call, with CUDA events on the current stream."""
+    """Device milliseconds per call of ``fn`` over ``reps`` calls after
+    one warm-up call, with CUDA events on the current stream, and the
+    host's milliseconds per call to issue them. A spin kernel queued
+    ahead of the start event holds the card while the host queues the
+    calls, so for work that does not wait on the host the span is the
+    calls' device time and not the host's time to issue them (that holds
+    while the host issues faster than the spin lasts, about 0.5 ms a
+    call)."""
     import torch
 
     from fcc_qp_tpu_torch.utils.timing import cuda_span
@@ -123,14 +176,42 @@ def time_cuda(fn, reps):
     fn()
     torch.cuda.synchronize()
     out = {}
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * reps)
+    t0 = time.perf_counter()
     with cuda_span(out, "ms"):
         for _ in range(reps):
             fn()
-    return out["ms"] / reps
+        host_ms = (time.perf_counter() - t0) * 1e3
+    return out["ms"] / reps, host_ms / reps
 
 
-def compare(name, kernel, plain, args, kw, prec):
-    """Kernel vs plain version on the same inputs; returns a record."""
+def chunk_bound(args, kw, out, prec):
+    """The least time the card could take for one chunk on these inputs,
+    in ms, and what bounds it. Bytes: the operator and per-instance data
+    of the instances that iterate, plus the state in and out of every
+    instance, each read or written once. Operations: (2k^2 + 16k + 12
+    ncones) flops per instance-iteration actually run."""
+    k, Bn = args[8].shape
+    kb = kw["kb"]
+    ncones = (k - kb) // 3
+    word = args[8].element_size()
+    itv_in = args[14]
+    active = int((out[6] > itv_in).sum())
+    iters = int((out[6] - itv_in).sum())
+    per_active = (k * k + 2 * k + 2 * kb + ncones + 1) * word
+    state = (4 * k + 4) * word + 3 * 4
+    nbytes = active * per_active + 2 * Bn * state
+    flops = iters * (2 * k * k + 16 * k + 12 * ncones)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[prec]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                active=active, iters=iters, k=k, B=Bn)
+
+
+def compare(name, case, kernel, plain, args, kw, prec):
+    """Kernel vs plain version on the same inputs: counters equal, state
+    within the tolerance; both timed. Returns a record."""
     import torch
 
     out_k = kernel(*args, **kw)
@@ -143,37 +224,30 @@ def compare(name, kernel, plain, args, kw, prec):
     max_err = 0.0
     for n, a, b in zip(names, out_k, out_p):
         if n in ("done", "n_iter", "itv"):
-            check(torch.equal(a, b), f"{name}: {n} differs from the plain version")
+            check(torch.equal(a, b),
+                  f"{name} [{case}]: {n} differs from the plain version")
         elif n in ("x", "s", "mu", "v"):
             err = float((a - b).abs().max())
             max_err = max(max_err, err)
-            check(err <= tol, f"{name}: {n} max |diff| {err:.3e} > {tol:.0e}")
+            check(err <= tol,
+                  f"{name} [{case}]: {n} max |diff| {err:.3e} > {tol:.0e}")
         else:
             rel = float(((a - b).abs() / (1.0 + b.abs())).max())
-            check(rel <= 10 * tol, f"{name}: {n} rel diff {rel:.3e}")
-    # the work this run's data needs: iterations actually run per instance
-    itv_in = args[14]
-    iters = int((out_k[6] - itv_in).sum())
+            check(rel <= 10 * tol, f"{name} [{case}]: {n} rel diff {rel:.3e}")
+    bound = chunk_bound(args, kw, out_k, prec)
+    ms, issue_ms = time_cuda(lambda: kernel(*args, **kw), reps=20)
+    plain_ms, _ = time_cuda(lambda: plain(*args, **kw), reps=3)
+    longest = int((out_k[6] - args[14]).max())
     Fj = args[0]
-    k, Bn = args[8].shape
-    kb = kw["kb"]
-    flops = iters * (2 * k * k + 16 * k + 12 * ((k - kb) // 3))
-    in_bytes = sum(a.numel() * a.element_size()
-                   for a in list(args) + [kw["weights"]]
-                   if isinstance(a, torch.Tensor))
-    out_bytes = sum(t.numel() * t.element_size() for t in out_k)
-    bound_s = max((in_bytes + out_bytes) / HBM_BYTES_PER_S,
-                  flops / PEAK_FLOPS[prec])
-    bound_by = ("bytes" if (in_bytes + out_bytes) / HBM_BYTES_PER_S
-                >= flops / PEAK_FLOPS[prec] else "operations")
-    ms = time_cuda(lambda: kernel(*args, **kw), reps=20)
-    plain_ms = time_cuda(lambda: plain(*args, **kw), reps=3)
-    log(f"[kernel] {name}: k={k} B={Bn} K={kw['K']} iterations run "
-        f"{iters}, max |diff| {max_err:.3e}, kernel {ms:.6f} ms, plain "
-        f"{plain_ms:.6f} ms, bound {bound_s * 1e3:.6f} ms ({bound_by}); "
-        f"F {Fj.numel() * Fj.element_size() / 1e6:.1f} MB")
+    log(f"[kernel] {name} [{case}]: k={bound['k']} B={bound['B']} "
+        f"K={kw['K']} active {bound['active']}, iterations run "
+        f"{bound['iters']} (longest {longest}), max |diff| {max_err:.3e}, "
+        f"kernel {ms:.6f} ms (host issue {issue_ms:.6f} ms per call), "
+        f"plain {plain_ms:.6f} ms, bound {bound['bound_ms']:.6f} ms "
+        f"({bound['bound_by']}); F "
+        f"{Fj.numel() * Fj.element_size() / 1e6:.1f} MB")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_s * 1e3, bound_by=bound_by)
+                longest=longest, **bound)
 
 
 def main() -> int:
@@ -193,7 +267,8 @@ def main() -> int:
 
     import fcc_qp_tpu_torch.core.ds_engine as engine
     from fcc_qp_tpu_torch import FCCQPOptions, solve_batched_ds, to_ds_batch
-    from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_batch
+    from fcc_qp_tpu_torch.models.osc import (CASSIE, HUMANOID,
+                                             generate_osc_batch)
     from fcc_qp_tpu_torch.ops import pallas_admm
     from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
 
@@ -208,6 +283,8 @@ def main() -> int:
     for line in info.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
+    if info.get("log"):
+        check_ptxas(info["log"])
     card = smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -268,23 +345,32 @@ def main() -> int:
     check(np.isfinite(sol.z.cpu().numpy()).all()
           and tuple(sol.z.shape) == (B, CASSIE.shape.num_vars),
           "solution not finite or of the wrong shape")
+    # does the host set the pace of a chunk? stage seconds per launch
+    host_per_chunk = {
+        "approach": stages.get("approach", 0.0)
+        / max(launches_bench["admm_chunk_f32"], 1),
+        "endgame": stages.get("endgame", 0.0)
+        / max(launches_bench["admm_chunk_f64"], 1),
+    }
+    log("[bench] host seconds per chunk (staged stage seconds / launches): "
+        + json.dumps(host_per_chunk))
+    # one more bench solve, not counted, that keeps each kernel's inputs:
+    # its last chunk is a straggler chunk
+    _, rec_bench = recorded_solve(
+        engine, lambda: solve_batched_ds(qp, CASSIE.shape, bench))
 
-    # 3. two-phase path through the f64 endgame kernel
+    # 3. two-phase path through the f64 endgame kernel (its wall includes
+    # the recorder's copies of every chunk's inputs)
     two_phase = bench.replace(polish=False, phase1_tol=1e-2)
-    rec = {name: Recorder(getattr(engine, name))
-           for name in ("admm_chunk_f32", "admm_chunk_f64")}
-    for name, r in rec.items():
-        setattr(engine, name, r)
     pallas_admm.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stages2 = {}
-    sol2, _ = solve_batched_ds(qp, CASSIE.shape, two_phase,
-                               stage_times=stages2)
+    (sol2, _), rec_tp = recorded_solve(
+        engine, lambda: solve_batched_ds(qp, CASSIE.shape, two_phase,
+                                         stage_times=stages2))
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
-    for name, r in rec.items():
-        setattr(engine, name, r.fn)
     launches_tp = {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
     ok2, st2, res2, _ = summarize("two_phase", sol2, launches_tp, wall2,
                                   stages2)
@@ -295,6 +381,19 @@ def main() -> int:
         total = launches_bench[fn.__name__] + launches_tp[fn.__name__]
         check(total > 0, f"{fn.__name__} was never launched")
 
+    # humanoid (k = 47 > 32): the kernels' two-slot layout. Its
+    # convergence is not checked (it fails in the reference itself).
+    hqp = to_ds_batch(stack_qp_dicts(generate_osc_batch(HUMANOID, 1024,
+                                                        seed=0)))
+    k_h = len(engine.constrained_indices(hqp, HUMANOID.shape))
+    check(k_h > 32, f"humanoid has k = {k_h} constrained rows, not > 32")
+    t0 = time.perf_counter()
+    _, rec_h = recorded_solve(
+        engine, lambda: solve_batched_ds(hqp, HUMANOID.shape, two_phase))
+    torch.cuda.synchronize()
+    log(f"[humanoid] B=1024 two-phase solve, k={k_h}, "
+        f"{time.perf_counter() - t0:.3f} s (recorded)")
+
     # 4. kernel vs plain version on the card (launches not counted)
     specs = (
         ("admm_chunk_f64", pallas_admm.admm_chunk_f64,
@@ -304,11 +403,29 @@ def main() -> int:
          pallas_admm.admm_chunk_f32_plain, "f32",
          "fcc_qp_tpu/ops/pallas_admm.py:595"),
     )
+    cases = (("first", rec_tp, "first"), ("tail", rec_bench, "last"),
+             ("k47", rec_h, "first"))
     records = []
     for name, kernel, plain, prec, replaces in specs:
-        check(rec[name].first is not None, f"{name}: no chunk captured")
-        args, kw = rec[name].first
-        r = compare(name, kernel, plain, args, kw, prec)
+        r = {}
+        for case, rec, which in cases:
+            got = getattr(rec[name], which)
+            check(got is not None, f"{name}: no {case} chunk captured")
+            r[case] = compare(name, case, kernel, plain, *got, prec)
+        first, tail, k47 = r["first"], r["tail"], r["k47"]
+        check(tail["active"] > 0, f"{name}: no instance iterates in the "
+              f"bench path's last chunk")
+        # the launch's fixed cost: the same inputs with every instance
+        # done, which every warp copies through; the rest of the straggler
+        # chunk is the longest instance's chain of iterations
+        args, kw = rec_bench[name].last
+        idle = list(args)
+        idle[12] = torch.ones_like(args[12])
+        ms_idle, _ = time_cuda(lambda: kernel(*idle, **kw), reps=20)
+        us_per_it = (tail["ms"] - ms_idle) * 1e3 / max(tail["longest"], 1)
+        log(f"[kernel] {name}: launch with every instance done "
+            f"{ms_idle:.6f} ms; straggler chunk {us_per_it:.3f} us per "
+            f"iteration of its longest instance ({tail['longest']})")
         records.append(dict(
             name=name, route="cuda",
             source="fcc_qp_tpu_torch/csrc/admm_chunk.cu",
@@ -316,9 +433,16 @@ def main() -> int:
             launches=launches_bench[name] + launches_tp[name],
             launches_bench=launches_bench[name],
             launches_two_phase=launches_tp[name],
-            max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None,
+            max_abs_err=first["max_abs_err"], ms=first["ms"],
+            plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=None,
+            ms_tail=tail["ms"], plain_ms_tail=tail["plain_ms"],
+            bound_ms_tail=tail["bound_ms"], bound_by_tail=tail["bound_by"],
+            active_tail=tail["active"], max_abs_err_tail=tail["max_abs_err"],
+            ms_idle=ms_idle, us_per_iteration_tail=us_per_it,
+            ms_k47=k47["ms"], plain_ms_k47=k47["plain_ms"],
+            bound_ms_k47=k47["bound_ms"], active_k47=k47["active"],
+            max_abs_err_k47=k47["max_abs_err"],
         ))
 
     # 5. result lines

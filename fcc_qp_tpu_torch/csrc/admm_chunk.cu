@@ -1,12 +1,14 @@
 // Fused ADMM iteration chunks of the reduced FCCQP engine, for Hopper
-// (sm_90a). Two precisions share one template:
+// (sm_90a). Two precisions share one template, each in two row layouts
+// (NR = 1 for k <= 32 constrained rows, NR = 2 for 32 < k <= 64):
 //
 //   admm_chunk_f64  replaces fcc_qp_tpu/ops/pallas_admm.py::admm_chunk_pallas
 //                   (Pallas body `_kernel`), which runs the endgame in
 //                   double-single because the TPU has no f64 ALU; here it
 //                   is native f64, with the primal-increment gate.
 //   admm_chunk_f32  replaces fcc_qp_tpu/ops/pallas_admm.py::admm_chunk_pallas32
-//                   (Pallas body `_kernel32`), the plain-f32 approach phase.
+//                   (Pallas body `_kernel32`), the plain-f32 approach phase
+//                   and the polish rounds' short chunks.
 //
 // One iteration, per instance b (k constrained coordinates: kb box rows,
 // then nc = 3 * ncones cone rows; every array is batch-last, [row][b]):
@@ -23,22 +25,57 @@
 // iteration in this chunk are carried through unchanged (the XLA chunk
 // bodies' semantics; the Pallas kernels zero them per chunk).
 //
-// Design: one thread per instance. The batch is the last axis, so thread
-// b's loads of F[j][i][b] coalesce across the warp, and each thread loops
-// over its own iterations with no padding to a tile and no masked work.
+// Bound, per launch (what these inputs need: each input read once, each
+// output written once; (2k^2 + 16k + 12 ncones) flops per
+// instance-iteration actually run):
+//   * all instances active (the first approach chunk, B = 8192, K = 64,
+//     Cassie k = 22): about 0.021 ms f64 / 0.010 ms f32, bound by
+//     operations against the FP64 / FP32 FMA peaks (34 / 67 TFLOP/s);
+//   * straggler chunks (most launches of a solve: a few dozen to a few
+//     hundred active instances, up to K = 64 iterations each): bound by
+//     bytes, mostly the state in and out of every instance (~2 * (4k + 7)
+//     * B words), 0.0037 ms f64 / 0.0020 ms f32 on the bench path's last
+//     chunks. The work itself is a chain of up to K dependent iterations
+//     per instance, so a straggler chunk is set by per-iteration latency
+//     (and the launch's fixed cost), not by any rate.
+// The times measured beside these bounds are in PERF.md.
+// With contraction off (--fmad=false, below) every multiply-add issues as
+// two instructions, so the attainable f32 / f64 rate is half the FMA peak
+// the bound divides by; the bound's definition is kept as it is.
+//
+// Design: one warp per instance, lane i owns constrained row i (and row
+// i + 32 when NR = 2). This turns the k x k mat-vec of one thread into k
+// dot products of length k run side by side; an iteration's latency is
+// about k dependent adds, a few shuffles and one cone projection.
+//   * The operator is read once per chunk, not once per iteration. NR = 1:
+//     lane i holds column F[:, i] (k values) in registers, loaded with
+//     compile-time indices (loops unrolled to 32, predicated on j < k);
+//     the mat-vec runs in groups of 8 columns, so a group's shuffles
+//     issue together, and pads the last group with exact no-op adds.
+//     NR = 2: the warp's k x k operator sits in dynamic shared memory.
+//     Loads are strided (one instance's F[j][i] are B elements apart), so
+//     each value moves as one 32-byte sector: 4x the operator's bytes in
+//     f64 and 8x in f32 from L2, once per chunk and only for instances
+//     that iterate (neighbouring warps hit the same sectors in L2).
+//   * State in registers: x, s, mu, v and the per-row constants of a
+//     lane's rows are scalars (arrays only over the compile-time NR).
+//   * Same arithmetic in the same order as the plain version, so the
+//     kernel rounds exactly like it: v[j] is broadcast with __shfl_sync
+//     and y[i] accumulated over j ascending; a cone's three lanes fetch
+//     (fx, fy, fz) by shuffle and each computes the same projection.
+//   * The convergence test is a warp vote (__all_sync) on each row's
+//     |r| * w < eps: with w >= 0 it equals max(...) < eps exactly. The
+//     reported xrn / lrn (warp max reductions) and the 2-norms prim / dual
+//     (summed in row order, broadcast by shuffle) are formed only at the
+//     instance's last iteration in the chunk; nothing else reads them.
+//   * The exit is warp-uniform: the warp leaves its loop together.
+//   * The whole card at full batch: B warps in blocks of kWarps, so
+//     B = 8192 fills every SM. The warp of an instance that does not
+//     iterate copies its state through to the separate outputs.
 // No contraction of mul+add into FMA (the library is built with
 // --fmad=false): the kernel then rounds exactly like the plain PyTorch
 // version in fcc_qp_tpu_torch/ops/pallas_admm.py, which is what the
 // on-card check holds it to.
-//
-// Bound: per chunk the operator F is k*k*B*(8|4) bytes and the state in
-// and out about 2*(5k + 8)*B*(8|4) bytes; the work is about
-// (2k^2 + O(k)) * B * K flops. At Cassie (k = 22, B = 8192) F is 31.7 MB
-// in f64 (15.9 MB in f32): it fits in the 50 MB L2, and the chunk is
-// bound by the rate at which each SM streams F through L1 and by the
-// per-thread local-memory state. This first version does nothing about
-// that bound: it re-reads F from L2 on every iteration and keeps the
-// state in local memory (runtime k, arrays sized for k <= 64).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,6 +83,8 @@
 namespace {
 
 constexpr int KMAX = 64;
+constexpr int kWarps = 4;  // instances (warps) per block
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
 struct ChunkArgs {
@@ -107,117 +146,279 @@ template <>
 __device__ __forceinline__ double tsqrt<double>(double a) { return sqrt(a); }
 
 template <typename T>
-__global__ void __launch_bounds__(128) admm_chunk_kernel(ChunkArgs<T> a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int B = a.B, k = a.k, kb = a.kb;
-  const int ncones = (k - kb) / 3;
+__device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = tmax(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
 
-  T x[KMAX], s[KMAX], mu[KMAX], v[KMAX], y[KMAX];
-  for (int i = 0; i < k; ++i) {
-    x[i] = a.x_in[i * B + b];
-    s[i] = a.s_in[i * B + b];
-    mu[i] = a.mu_in[i * B + b];
-    v[i] = a.v_in[i * B + b];
+// The value a[.] that the warp holds for constrained row `row` (row r
+// lives in slot r / 32 of lane r % 32). Every lane must call it.
+template <int NR, typename T>
+__device__ __forceinline__ T from_row(const T (&a)[NR], int row) {
+  T v = __shfl_sync(kFull, a[0], row & 31);
+  if constexpr (NR == 2) {
+    const T v1 = __shfl_sync(kFull, a[1], row & 31);
+    if (row >= 32) v = v1;
   }
-  int done = a.done_in[b];
-  int niter = a.niter_in[b];
-  int itv = a.itv_in[b];
-  T xrn = a.xrn_in[b], lrn = a.lrn_in[b];
-  T prim = a.prim_in[b], dual = a.dual_in[b];
+  return v;
+}
+
+template <typename T, int NR>
+__global__ void __launch_bounds__(kWarps * 32)
+    admm_chunk_warp(ChunkArgs<T> a) {
+  // NR == 2: each warp's k x k operator, [j][i]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= a.B) return;  // warp-uniform
+  const int B = a.B, k = a.k, kb = a.kb;
+  const int done_in = a.done_in[b];
+  const int itv_in = a.itv_in[b];
+
+  // the state: iterated below, or copied through by an idle warp
+  int row[NR];
+  bool valid[NR];
+  T x[NR], s[NR], mu[NR], v[NR];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    row[q] = lane + 32 * q;
+    valid[q] = row[q] < k;
+    const size_t o = (size_t)row[q] * B + b;
+    x[q] = valid[q] ? a.x_in[o] : T(0);
+    s[q] = valid[q] ? a.s_in[o] : T(0);
+    mu[q] = valid[q] ? a.mu_in[o] : T(0);
+    v[q] = valid[q] ? a.v_in[o] : T(0);
+  }
+
+  if (done_in != 0 || itv_in >= a.max_iter || a.K < 1) {
+    // no iteration in this chunk: the state goes through unchanged
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      if (valid[q]) {
+        const size_t o = (size_t)row[q] * B + b;
+        a.x_out[o] = x[q];
+        a.s_out[o] = s[q];
+        a.mu_out[o] = mu[q];
+        a.v_out[o] = v[q];
+      }
+    }
+    if (lane == 0) {
+      a.done_out[b] = done_in;
+      a.niter_out[b] = a.niter_in[b];
+      a.itv_out[b] = itv_in;
+      a.xrn_out[b] = a.xrn_in[b];
+      a.lrn_out[b] = a.lrn_in[b];
+      a.prim_out[b] = a.prim_in[b];
+      a.dual_out[b] = a.dual_in[b];
+    }
+    return;
+  }
+
   const T rho = a.rho[b];
+  // per-row constants; a cone row c0 + pos (pos = 0, 1, 2 for fx, fy,
+  // fz) keeps its cone's first row c0 and friction coefficient in lo
+  bool box[NR];
+  int c0[NR], pos[NR];
+  T xc[NR], w[NR], lo[NR], hi[NR];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    const int r = row[q];
+    const size_t o = (size_t)r * B + b;
+    box[q] = r < kb;
+    xc[q] = valid[q] ? a.xc[o] : T(0);
+    w[q] = valid[q] ? a.w[o] : T(0);
+    lo[q] = T(0);
+    hi[q] = T(0);
+    c0[q] = r;
+    pos[q] = 0;
+    if (box[q]) {
+      lo[q] = a.lb[o];
+      hi[q] = a.ub[o];
+    } else if (valid[q]) {
+      const int c = (r - kb) / 3;
+      c0[q] = kb + 3 * c;
+      pos[q] = r - c0[q];
+      lo[q] = a.muf[(size_t)c * B + b];
+    }
+  }
 
+  // the operator, read once for the chunk
+  T col[NR == 1 ? 32 : 1];
+  T* Fs = reinterpret_cast<T*>(smem_raw) + (size_t)warp * k * k;
+  if constexpr (NR == 1) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      col[j] = (j < k && lane < k) ? a.F[((size_t)j * k + lane) * B + b]
+                                   : T(0);
+  } else {
+    for (int e = lane; e < k * k; e += 32) Fs[e] = a.F[(size_t)e * B + b];
+    __syncwarp();
+  }
+  // NR == 2: shared-memory column offsets, clamped for rows >= k
+  int fo[NR];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) fo[q] = valid[q] ? row[q] : 0;
+
+  int niter = a.niter_in[b];
+  int itv = itv_in;
+  int done = 0;
   for (int it = 0; it < a.K; ++it) {
-    if (done != 0 || itv >= a.max_iter) break;
+    T vn[NR], y[NR];
+#pragma unroll
+    for (int q = 0; q < NR; ++q) vn[q] = s[q] - mu[q];
 
-    // v = s - mu ; y = F^T v, accumulated over j in ascending order
-    for (int j = 0; j < k; ++j) v[j] = s[j] - mu[j];
-    for (int i = 0; i < k; ++i) y[i] = a.F[i * B + b] * v[0];
-    for (int j = 1; j < k; ++j) {
-      const T* Fj = a.F + (size_t)j * k * B;
-      const T vj = v[j];
-      for (int i = 0; i < k; ++i) y[i] = y[i] + Fj[i * B + b] * vj;
-    }
-
-    T n_xrn = 0, n_lrn = 0, x_inc = 0, l_inc = 0, pp = 0, dd = 0;
-    // box rows
-    for (int i = 0; i < kb; ++i) {
-      const T xi = a.xc[i * B + b] + rho * y[i];
-      const T t = xi + mu[i];
-      const T si = tclip(t, a.lb[i * B + b], a.ub[i * B + b]);
-      const T r = xi - si;
-      const T wi = a.w[i * B + b];
-      n_xrn = tmax(n_xrn, tabs(r) * wi);
-      x_inc = tmax(x_inc, tabs(xi - x[i]) * wi);
-      const T dp = r * wi;
-      const T dc = (si - s[i]) * wi;
-      pp = pp + dp * dp;
-      dd = dd + dc * dc;
-      mu[i] = mu[i] + r;
-      x[i] = xi;
-      s[i] = si;
-    }
-    // cone rows, one friction cone (fx, fy, fz) at a time
-    for (int c = 0; c < ncones; ++c) {
-      const int i0 = kb + 3 * c;
-      T xi3[3], t3[3], p3[3];
-      for (int q = 0; q < 3; ++q) {
-        xi3[q] = a.xc[(i0 + q) * B + b] + rho * y[i0 + q];
-        t3[q] = xi3[q] + mu[i0 + q];
+    // y = F^T v, accumulated over j in ascending order
+    if constexpr (NR == 1) {
+      // in groups of 8 so that a group's shuffles issue together; a step
+      // j >= k adds -0, which leaves every y (+0 and -0 included) as it is
+      y[0] = col[0] * __shfl_sync(kFull, vn[0], 0);
+#pragma unroll
+      for (int j0 = 0; j0 < 32; j0 += 8) {
+        if (j0 < k) {
+#pragma unroll
+          for (int j = (j0 == 0 ? 1 : j0); j < j0 + 8; ++j) {
+            const T p = col[j] * __shfl_sync(kFull, vn[0], j);
+            y[0] = y[0] + (j < k ? p : T(-0.0));
+          }
+        }
       }
-      const T fx = t3[0], fy = t3[1], fz = t3[2];
-      const T m = a.muf[c * B + b];
-      const T norm = tsqrt<T>(fx * fx + fy * fy);
-      const bool inside = m * fz - norm >= T(0);
-      const bool polar = fz + m * norm < T(0);
-      const T tt = (m * norm + fz) / (m * m + T(1));
-      const T safe = norm > T(0) ? norm : T(1);
-      const T sc = tt * m / safe;
-      p3[0] = inside ? fx : (polar ? T(0) : sc * fx);
-      p3[1] = inside ? fy : (polar ? T(0) : sc * fy);
-      p3[2] = inside ? fz : (polar ? T(0) : tt);
-      for (int q = 0; q < 3; ++q) {
-        const int i = i0 + q;
-        const T r = xi3[q] - p3[q];
-        const T wi = a.w[i * B + b];
-        n_lrn = tmax(n_lrn, tabs(r) * wi);
-        l_inc = tmax(l_inc, tabs(xi3[q] - x[i]) * wi);
-        const T dp = r * wi;
-        const T dc = (p3[q] - s[i]) * wi;
-        pp = pp + dp * dp;
-        dd = dd + dc * dc;
-        mu[i] = mu[i] + r;
-        x[i] = xi3[q];
-        s[i] = p3[q];
+    } else {
+      const T v0 = __shfl_sync(kFull, vn[0], 0);
+#pragma unroll
+      for (int q = 0; q < NR; ++q) y[q] = Fs[fo[q]] * v0;
+      const int k1 = k < 32 ? k : 32;
+      for (int j = 1; j < k1; ++j) {
+        const T vj = __shfl_sync(kFull, vn[0], j);
+#pragma unroll
+        for (int q = 0; q < NR; ++q) y[q] = y[q] + Fs[j * k + fo[q]] * vj;
+      }
+      for (int j = 32; j < k; ++j) {
+        const T vj = __shfl_sync(kFull, vn[NR - 1], j - 32);
+#pragma unroll
+        for (int q = 0; q < NR; ++q) y[q] = y[q] + Fs[j * k + fo[q]] * vj;
       }
     }
 
-    bool conv = (n_lrn < a.eps_f) && (n_xrn < a.eps_b);
-    if (a.inc_gate) conv = conv && (x_inc < a.eps_b) && (l_inc < a.eps_f);
-    xrn = n_xrn;
-    lrn = n_lrn;
-    prim = tsqrt<T>(pp);
-    dual = rho * tsqrt<T>(dd);
+    T xn[NR], t[NR];
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      xn[q] = xc[q] + rho * y[q];
+      t[q] = xn[q] + mu[q];
+    }
+
+    // projections: box rows clip; the three lanes of a cone fetch
+    // (fx, fy, fz) and each computes the cone's projection
+    T sn[NR];
+    bool ok = true;
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      const T fx = from_row<NR>(t, c0[q]);
+      const T fy = from_row<NR>(t, c0[q] + 1);
+      const T fz = from_row<NR>(t, c0[q] + 2);
+      if (box[q]) {
+        sn[q] = tclip(t[q], lo[q], hi[q]);
+      } else {
+        const T m = lo[q];
+        const T norm = tsqrt<T>(fx * fx + fy * fy);
+        const bool inside = m * fz - norm >= T(0);
+        const bool polar = fz + m * norm < T(0);
+        const T tt = (m * norm + fz) / (m * m + T(1));
+        const T safe = norm > T(0) ? norm : T(1);
+        const T sc = tt * m / safe;
+        const T surf = pos[q] == 2 ? tt : sc * t[q];
+        sn[q] = inside ? t[q] : (polar ? T(0) : surf);
+      }
+      if (valid[q]) {
+        const T eps = box[q] ? a.eps_b : a.eps_f;
+        ok = ok && tabs(xn[q] - sn[q]) * w[q] < eps;
+        if (a.inc_gate) ok = ok && tabs(xn[q] - x[q]) * w[q] < eps;
+      }
+    }
+    // max over a segment < eps  <=>  every row < eps (and eps > 0, for
+    // an empty segment, whose max is 0)
+    const bool conv =
+        __all_sync(kFull, ok) && T(0) < a.eps_b && T(0) < a.eps_f;
+
+    if (conv || it + 1 == a.K || itv + 1 >= a.max_iter) {
+      // the instance's last iteration in this chunk: its residual norms
+      T bx = T(0), cx = T(0), pq[NR], dq[NR];
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        const T r = xn[q] - sn[q];
+        const T wr = tabs(r) * w[q];
+        if (valid[q]) {
+          if (box[q])
+            bx = tmax(bx, wr);
+          else
+            cx = tmax(cx, wr);
+        }
+        const T dp = r * w[q];
+        const T dc = (sn[q] - s[q]) * w[q];
+        pq[q] = valid[q] ? dp * dp : T(0);
+        dq[q] = valid[q] ? dc * dc : T(0);
+      }
+      bx = warp_max(bx);
+      cx = warp_max(cx);
+      T pp = T(0), dd = T(0);
+      for (int rr = 0; rr < k; ++rr) {
+        pp = pp + from_row<NR>(pq, rr);
+        dd = dd + from_row<NR>(dq, rr);
+      }
+      if (lane == 0) {
+        a.xrn_out[b] = bx;
+        a.lrn_out[b] = cx;
+        a.prim_out[b] = tsqrt<T>(pp);
+        a.dual_out[b] = rho * tsqrt<T>(dd);
+      }
+    }
+
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      mu[q] = mu[q] + (xn[q] - sn[q]);
+      x[q] = xn[q];
+      s[q] = sn[q];
+      v[q] = vn[q];
+    }
     if (conv) {
       niter = itv;
       done = 1;
     }
     itv = itv + 1;
+    if (done != 0 || itv >= a.max_iter) break;
   }
 
-  for (int i = 0; i < k; ++i) {
-    a.x_out[i * B + b] = x[i];
-    a.s_out[i * B + b] = s[i];
-    a.mu_out[i * B + b] = mu[i];
-    a.v_out[i * B + b] = v[i];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    if (valid[q]) {
+      const size_t o = (size_t)row[q] * B + b;
+      a.x_out[o] = x[q];
+      a.s_out[o] = s[q];
+      a.mu_out[o] = mu[q];
+      a.v_out[o] = v[q];
+    }
   }
-  a.done_out[b] = done;
-  a.niter_out[b] = niter;
-  a.itv_out[b] = itv;
-  a.xrn_out[b] = xrn;
-  a.lrn_out[b] = lrn;
-  a.prim_out[b] = prim;
-  a.dual_out[b] = dual;
+  if (lane == 0) {
+    a.done_out[b] = done;
+    a.niter_out[b] = niter;
+    a.itv_out[b] = itv;
+  }
+}
+
+template <typename T, int NR>
+int launch_rows(const ChunkArgs<T>& a, cudaStream_t stream) {
+  const size_t smem = NR == 2 ? (size_t)kWarps * a.k * a.k * sizeof(T) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        admm_chunk_warp<T, NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (a.B + kWarps - 1) / kWarps;
+  admm_chunk_warp<T, NR><<<blocks, kWarps * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -263,10 +464,8 @@ int launch(void* const* p, T eps_b, T eps_f, int B, int k, int kb, int K,
   a.K = K;
   a.max_iter = max_iter;
   a.inc_gate = inc_gate;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  admm_chunk_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return k <= 32 ? launch_rows<T, 1>(a, s) : launch_rows<T, 2>(a, s);
 }
 
 }  // namespace

@@ -1,6 +1,8 @@
 """Port parity of the two ADMM chunk kernels' plain versions against the
 Pallas kernels they replace, run in interpret mode (one 128-instance
-tile, K=16) from a real prepared Cassie state.
+tile, K=16) from a real prepared state: Cassie (k = 22 constrained rows)
+and the humanoid (k = 47, above one warp's 32 lanes, the CUDA kernels'
+two-slot layout).
 
 The CUDA kernels themselves run only on the card, where `chip_smoke.py`
 holds each against its plain version; here the plain versions (which
@@ -17,11 +19,17 @@ from fcc_qp_tpu.ops import ds
 from fcc_qp_tpu.ops.pallas_admm import admm_chunk_pallas, admm_chunk_pallas32
 from fcc_qp_tpu_torch import FCCQPOptions
 from fcc_qp_tpu_torch.core import ds_engine as teng
-from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_batch
+from fcc_qp_tpu_torch.models.osc import CASSIE, HUMANOID, generate_osc_batch
 from fcc_qp_tpu_torch.ops import pallas_admm as tk
 from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
 
 B, K, MAX_ITER = 128, 16, 2000
+# plain-version iterations run before the compared chunk, per model, so
+# that convergence events fall inside it: (f32 chunk test, f64 chunk
+# test's f32 approach, its f64 iterations). The humanoid's f32 approach
+# reaches TAU from iteration 11 on, and its first f64 instances converge
+# after 227 and 232 endgame iterations.
+WARMUP = {"cassie": (90, 300, 150), "humanoid": (8, 300, 220)}
 TAU = 1e-2
 EPS = float(np.float32(1e-6))
 OPTS = FCCQPOptions(
@@ -31,12 +39,14 @@ OPTS = FCCQPOptions(
 )
 
 
-@pytest.fixture(scope="module")
-def prepared():
+@pytest.fixture(scope="module", params=[CASSIE, HUMANOID],
+                ids=lambda m: m.name)
+def prepared(request):
     """Prepared operator + a mid-approach state of the port's engine."""
-    stacked = stack_qp_dicts(generate_osc_batch(CASSIE, B, seed=5))
+    model = request.param
+    stacked = stack_qp_dicts(generate_osc_batch(model, B, seed=5))
     qp = teng.to_ds_batch(stacked, device="cpu")
-    shape = CASSIE.shape
+    shape = model.shape
     ci = teng.constrained_indices(qp, shape)
     prep = teng._prepare_reduced(qp, None, shape, OPTS, False, ci)
     ci_t = torch.as_tensor(ci)
@@ -58,7 +68,7 @@ def prepared():
         itv=torch.zeros(B, dtype=torch.int32),
         xrn=zb, lrn=zb, prim=zb, dual=zb,
     )
-    return op, state
+    return op, state, WARMUP[model.name]
 
 
 def _run_plain(fn, op, st, dtype, K_, eps_b, eps_f, **kw):
@@ -152,9 +162,9 @@ def _unpack(out, kb, to_np):
 
 
 def test_f32_chunk_matches_pallas32(prepared):
-    op, st0 = prepared
+    op, st0, (n32, _, _) = prepared
     # approach the coarse point so convergence events fall in the chunk
-    st = _run_plain(tk.admm_chunk_f32_plain, op, st0, torch.float32, 90,
+    st = _run_plain(tk.admm_chunk_f32_plain, op, st0, torch.float32, n32,
                     TAU, TAU)
     st = _masked_state(st)
     got = _run_plain(tk.admm_chunk_f32_plain, op, st, torch.float32, K,
@@ -171,15 +181,15 @@ def test_f32_chunk_matches_pallas32(prepared):
 
 
 def test_f64_chunk_matches_ds_pallas(prepared):
-    op, st0 = prepared
+    op, st0, (_, n32, n64) = prepared
     # f32 approach, then f64 endgame iterations up to the point where
     # instances start to converge
-    st = _run_plain(tk.admm_chunk_f32_plain, op, st0, torch.float32, 300,
+    st = _run_plain(tk.admm_chunk_f32_plain, op, st0, torch.float32, n32,
                     TAU, TAU)
     st = {k_: (v.double() if v.is_floating_point() else v)
           for k_, v in st.items()}
     st["done"] = torch.zeros(B, dtype=torch.bool)
-    st = _run_plain(tk.admm_chunk_f64_plain, op, st, torch.float64, 150,
+    st = _run_plain(tk.admm_chunk_f64_plain, op, st, torch.float64, n64,
                     EPS, EPS, inc_gate=True)
     st = _masked_state(st)
     got = _run_plain(tk.admm_chunk_f64_plain, op, st, torch.float64, K,
