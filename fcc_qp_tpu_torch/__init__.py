@@ -18,8 +18,12 @@ torch.set_float32_matmul_precision("highest")
 
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape  # noqa: E402
 from fcc_qp_tpu_torch.core.ds_engine import (  # noqa: E402
+    OperatorCache,
     QPBatchDS,
     WarmStartDS,
+    operator_cache_from_numpy,
+    replay_ds,
+    replay_ds_streams,
     solve_batched_ds,
     to_ds_batch,
     warm_start_from_numpy,
@@ -36,8 +40,12 @@ __all__ = [
     "FCCQPDetails",
     "FCCQPSolution",
     "FCCQPSolveStatus",
+    "OperatorCache",
     "QPBatchDS",
     "WarmStartDS",
+    "operator_cache_from_numpy",
+    "replay_ds",
+    "replay_ds_streams",
     "solve_batched_ds",
     "to_ds_batch",
     "warm_start_from_numpy",

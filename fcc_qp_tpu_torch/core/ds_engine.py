@@ -6,7 +6,8 @@ f64 ALU; this engine keeps it in native f64 wherever the JAX engine
 uses ds, and in f32 wherever the JAX engine is plain f32 (the
 Newton-Schulz inverse seeds and the approach phase). Data and state are
 batch-LAST (``(n, B)`` vectors, ``(n, m, B)`` matrices) so that the
-one-thread-per-instance ADMM kernels load coalesced.
+one-warp-per-instance ADMM kernels read each row of the batch in one
+coalesced load.
 
 One cold solve (`solve_batched_ds`) runs, in order:
   1. Ruiz scaling (`ops.scaling`), factors bit-equal to the JAX engine's;
@@ -22,11 +23,17 @@ One cold solve (`solve_batched_ds`) runs, in order:
 The JAX engine's `lax.while_loop` over chunks is a Python loop here,
 with the convergence test between chunks (one host read per chunk).
 
+Warm replay (`replay_ds_streams`) splits a log into parallel streams,
+solves step 0 of every stream cold and each later step warm, carrying
+an `OperatorCache` from step to step: the previous step's KKT seed is
+refreshed instead of rebuilt, the Ruiz factors are reused, and the
+polish starts from the carried seed and classification before any ADMM
+iteration. `replay_ds` is the serial single-stream replay.
+
 Not ported yet (raise `NotImplementedError`, see ROADMAP.md queue A):
-warm replay with carried operator seeds (`OperatorCache`,
-`replay_ds_streams`), the full-splitting engine, the all-ds factor,
-exact presolve, adaptive rho, over-relaxation, and problems without
-constrained coordinates or without cones.
+the full-splitting engine, the all-ds factor, exact presolve, adaptive
+rho, over-relaxation, and problems without constrained coordinates or
+without cones.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
 from fcc_qp_tpu_torch.ops.ds_linalg import (
     assemble_kkt_ds,
     kkt_inverse_blocks_refined_ds,
+    kkt_inverse_f32_refresh,
     kkt_inverse_f32_seed,
     matvec_ds,
     refine_inverse_columns_ds,
@@ -50,7 +58,7 @@ from fcc_qp_tpu_torch.ops.ds_linalg import (
 )
 from fcc_qp_tpu_torch.ops.pallas_admm import admm_chunk_f32, admm_chunk_f64
 from fcc_qp_tpu_torch.ops.polish import polish_reduced
-from fcc_qp_tpu_torch.ops.scaling import apply_scaling, ruiz_scaling
+from fcc_qp_tpu_torch.ops.scaling import Scaling, apply_scaling, ruiz_scaling
 from fcc_qp_tpu_torch.types import (
     FCCQPDetails,
     FCCQPSolution,
@@ -86,6 +94,35 @@ class WarmStartDS(NamedTuple):
     mu_x: torch.Tensor
     mu_lambda_c: torch.Tensor
     rho: torch.Tensor
+
+
+class OperatorCache(NamedTuple):
+    """Carried f32 operator seeds of sequential (replay) solves: the
+    port of `fcc_qp_tpu.core.ds_engine.OperatorCache`.
+
+    A control-rate replay moves the QP data ~0.1% a step, so the seed
+    builds (the Schur KKT inverse, `ops.ds_linalg.kkt_inverse_f32_seed`,
+    and the polish KKT inverse, `ops.polish._polish_seed_f32`) are
+    replaced by a few guarded Newton-Schulz refresh steps against the
+    new step's data. Every refreshed seed is residual-checked and falls
+    back to the cold build per instance.
+
+    Layouts differ from the JAX package's where its seeds are batch-last:
+    ``kkt_seed`` is batch-LEADING here (`operator_cache_from_numpy`
+    converts).
+    """
+
+    kkt_seed: Optional[torch.Tensor] = None     # (B, N, N) f32
+    polish_seed: Optional[torch.Tensor] = None  # (B, N2, N2) f32
+    # the packed classification (`ops.polish.pack_classification`) the
+    # polish seed was last refreshed against: the next step's first
+    # assembly uses it, so the carried seed and the KKT rows match
+    polish_cls: Optional[torch.Tensor] = None   # (2*kb + 2*ncones, B) bool
+    # carried Ruiz factors (`ops.scaling.Scaling`): an exact power-of-two
+    # change of variables, so reusing them keeps the scaled KKT, and with
+    # it every carried seed, from jumping when a recomputed factor would
+    # cross a power of two
+    scales: Optional[Scaling] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -128,6 +165,30 @@ def warm_start_from_numpy(x_hi, x_lo, mu_x_hi, mu_x_lo, mu_lc_hi, mu_lc_lo,
         mu_x=f64(mu_x_hi, mu_x_lo),
         mu_lambda_c=f64(mu_lc_hi, mu_lc_lo),
         rho=torch.from_numpy(np.array(rho, np.float32)).to(dev),
+    )
+
+
+def operator_cache_from_numpy(kkt_seed, polish_seed, polish_cls, d, e, c,
+                              device=None) -> OperatorCache:
+    """Convert the JAX package's `OperatorCache` (given as numpy arrays)
+    into this package's: ``kkt_seed`` goes from batch-last (N, N, B) to
+    batch-leading (B, N, N); ``polish_seed`` (B, N2, N2) and
+    ``polish_cls`` are taken as they are; ``(d, e, c)`` become a
+    `Scaling`. ``polish_seed`` / ``polish_cls`` may be None (a cache of a
+    solve without polish)."""
+    dev = resolve_device(device)
+
+    def t(a, dtype):
+        if a is None:
+            return None
+        return torch.from_numpy(np.array(a, dtype, order="C")).to(dev)
+
+    return OperatorCache(
+        kkt_seed=t(np.moveaxis(np.asarray(kkt_seed), -1, 0), np.float32),
+        polish_seed=t(polish_seed, np.float32),
+        polish_cls=t(polish_cls, np.bool_),
+        scales=Scaling(d=t(d, np.float32), e=t(e, np.float32),
+                       c=t(c, np.float32)),
     )
 
 
@@ -220,6 +281,7 @@ class _PrepReduced(NamedTuple):
     qps: QPBatchDS       # scaled problem
     d: torch.Tensor      # (n, B) f32 variable scales
     e: torch.Tensor      # (m, B) f32 equality-row scales
+    c: torch.Tensor      # (B,) f32 cost scale
     rho0: torch.Tensor   # (B,) f32
     mu0: torch.Tensor    # (k, B) initial scaled duals
     x_init: torch.Tensor  # (n, B) initial scaled primal
@@ -227,16 +289,21 @@ class _PrepReduced(NamedTuple):
     xc_const: torch.Tensor
     Fcolj: torch.Tensor  # (k, n, B) for the final full-x recovery
     x_const: torch.Tensor
+    kkt_seed: torch.Tensor  # (B, N, N) f32 KKT inverse seed
+    # (B,) the lazy f32-only operator did not contract (even after the
+    # cold rescue): these instances get the exact build regardless
     seed_bad: Optional[torch.Tensor] = None
 
 
-def _scale_reduced(qp: QPBatchDS, shape: ProblemShape, opts: FCCQPOptions):
+def _scale_reduced(qp: QPBatchDS, shape: ProblemShape, opts: FCCQPOptions,
+                   carried: Optional[Scaling] = None):
     """Ruiz-equilibrate the batch. Forced whenever splitting is
     'constrained' (removing rho from the free coordinates leaves the
     KKT (1,1) block near-singular on unequilibrated data). The factors
     come from the f32-rounded data, as the JAX engine computes them from
-    its hi words."""
-    sc = ruiz_scaling(
+    its hi words. ``carried``: the factors of a previous replay step
+    (`OperatorCache.scales`), reused instead of recomputed."""
+    sc = carried if carried is not None else ruiz_scaling(
         qp.Q.float(), qp.A_eq.float(), qp.b.float(), shape,
         iters=opts.scaling_iters,
     )
@@ -287,18 +354,24 @@ def _factor_reduced(qp: QPBatchDS, rho, ci, mask, refine_steps: int):
     return Fcc, x_const[ci_t].contiguous(), Fcolj, x_const.contiguous()
 
 
-def _factor_reduced_hybrid(qp: QPBatchDS, rho, ci, mask, passes: int):
+def _factor_reduced_hybrid(qp: QPBatchDS, rho, ci, mask, passes: int,
+                           kkt_seed: Optional[torch.Tensor] = None):
     """Hybrid operator: f32 Schur NS seed + f64 refinement of ONLY the
     needed inverse columns and the constant term. Instances whose seed
     did not contract, or whose refined constant-term solve misses 1e-5
     relative residual against the true KKT, are re-factored on the f64
-    Schur-Cholesky route. Returns (Fcc, xc_const, Fcolj, x_const, X32)."""
+    Schur-Cholesky route. ``kkt_seed``: a carried f32 inverse
+    (`OperatorCache.kkt_seed`), refreshed instead of rebuilt. Returns
+    (Fcc, xc_const, Fcolj, x_const, X32)."""
     n = qp.Q.shape[0]
     dev = qp.b.device
     ci_t = torch.as_tensor(ci, device=dev)
     rd = _rho_diag(rho, mask)
     M = assemble_kkt_ds(qp.Q, qp.A_eq, rd)
-    X32, seed_res = kkt_inverse_f32_seed(qp.Q, qp.A_eq, rd)
+    if kkt_seed is None:
+        X32, seed_res = kkt_inverse_f32_seed(qp.Q, qp.A_eq, rd)
+    else:
+        X32, seed_res = kkt_inverse_f32_refresh(kkt_seed, qp.Q, qp.A_eq, rd)
     C = refine_inverse_columns_ds(X32, M, ci, passes=passes)   # (B, N, k)
     Fcc, Fcolj = _reduced_blocks(C[:, :n, :], ci_t)
     r = torch.cat([-qp.b, qp.b_eq], dim=0)
@@ -322,15 +395,41 @@ def _factor_reduced_hybrid(qp: QPBatchDS, rho, ci, mask, passes: int):
     return Fcc, xc_const, Fcolj, x_const, X32
 
 
-def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask):
+def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask,
+                        kkt_seed: Optional[torch.Tensor] = None,
+                        clock: Optional[StageClock] = None):
     """f32-only reduced operator: the NS KKT inverse seed sliced to the
     hot-loop blocks, no refinement (accuracy ~1e-3 relative, enough for
     the coarse approach phase + polish). Returns
     (Fcc32, xc_const32, Fcolj32, x_const32, X32, bad) with ``bad`` the
-    per-instance non-contraction flag of the seed."""
+    per-instance non-contraction flag of the seed.
+
+    ``kkt_seed``: a carried f32 inverse (`OperatorCache.kkt_seed`),
+    refreshed against this step's KKT. Instances whose refresh does not
+    contract (the data jumped) get a cold seed build, GATHERED in passes
+    of ``min(B, max(128, B // 8))`` instances and looping until every
+    one is rebuilt; those still flagged after that are ``bad``.
+    ``clock`` counts the rescued instances (``n_kkt_rescue``)."""
     n = qp.Q.shape[0]
     ci_t = torch.as_tensor(ci, device=qp.b.device)
-    X32, seed_res = kkt_inverse_f32_seed(qp.Q, qp.A_eq, _rho_diag(rho, mask))
+    rd = _rho_diag(rho, mask)
+    if kkt_seed is None:
+        X32, seed_res = kkt_inverse_f32_seed(qp.Q, qp.A_eq, rd)
+    else:
+        X32, seed_res = kkt_inverse_f32_refresh(kkt_seed, qp.Q, qp.A_eq, rd)
+        rem = seed_res > 0.5
+        if clock is not None:
+            clock.count("n_kkt_rescue", rem)
+        B = qp.batch
+        C = min(B, max(128, B // 8))
+        while bool(rem.any()):
+            idx = torch.argsort(-rem.float(), stable=True)[:C]
+            sel = rem[idx]
+            Xc, rc = kkt_inverse_f32_seed(qp.Q[..., idx], qp.A_eq[..., idx],
+                                          rd[:, idx])
+            X32[idx] = torch.where(sel[:, None, None], Xc, X32[idx])
+            seed_res[idx] = torch.where(sel, rc, seed_res[idx])
+            rem[idx] = False
     r = torch.cat([-qp.b.float(), qp.b_eq.float()], dim=0)
     xfull = (X32 @ r.T[:, :, None])[:, :, 0].T
     Fcc, Fcolj = _reduced_blocks(X32[:, :n, ci_t], ci_t)
@@ -340,10 +439,14 @@ def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask):
 
 
 def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
-                     clock: Optional[StageClock] = None):
+                     clock: Optional[StageClock] = None,
+                     kkt_seed: Optional[torch.Tensor] = None,
+                     scales: Optional[Scaling] = None):
     """Stage 1 (the "factorization" phase): equilibration, initial state
     (warm: unscaled full-space state -> scaled reduced coordinates;
-    cold: the operator presolve), and the reduced KKT operator."""
+    cold: the operator presolve), and the reduced KKT operator.
+    ``kkt_seed`` / ``scales``: carried from a previous replay step
+    (`OperatorCache`)."""
     nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
     B = qp.batch
     dev = qp.b.device
@@ -353,7 +456,7 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
     kb = k - nc
 
     clock = clock or StageClock()
-    qps, sc = _scale_reduced(qp, shape, opts)
+    qps, sc = _scale_reduced(qp, shape, opts, carried=scales)
     clock.mark("scaling")
     d = sc.d
     inv_d = (1.0 / d).double()
@@ -378,22 +481,22 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
         # f32-only operator: the approach phase and the self-solving
         # polish never need more; the exact build is deferred to just
         # before the endgame (`_iterate_reduced`)
-        Fcc, xc_const, Fcolj, x_const, _, seed_bad = _factor_reduced_f32(
-            qps, rho0, ci, mask
+        Fcc, xc_const, Fcolj, x_const, X32, seed_bad = _factor_reduced_f32(
+            qps, rho0, ci, mask, kkt_seed=kkt_seed, clock=clock
         )
         Fcc, xc_const = Fcc.double(), xc_const.double()
         Fcolj, x_const = Fcolj.double(), x_const.double()
     else:
-        Fcc, xc_const, Fcolj, x_const, _ = _factor_reduced_hybrid(
-            qps, rho0, ci, mask, opts.kkt_refine_steps + 1
+        Fcc, xc_const, Fcolj, x_const, X32 = _factor_reduced_hybrid(
+            qps, rho0, ci, mask, opts.kkt_refine_steps + 1, kkt_seed=kkt_seed
         )
     if x_init is None:
         x_init = x_const
     clock.mark("operator")
     return _PrepReduced(
-        qps=qps, d=d, e=sc.e, rho0=rho0, mu0=mu0,
+        qps=qps, d=d, e=sc.e, c=sc.c, rho0=rho0, mu0=mu0,
         x_init=x_init, Fcc=Fcc, xc_const=xc_const, Fcolj=Fcolj,
-        x_const=x_const, seed_bad=seed_bad,
+        x_const=x_const, kkt_seed=X32, seed_bad=seed_bad,
     )
 
 
@@ -426,9 +529,19 @@ class _Polish(NamedTuple):
 
 
 def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
-                     clock: Optional[StageClock] = None):
+                     clock: Optional[StageClock] = None,
+                     polish_seed: Optional[torch.Tensor] = None,
+                     polish_cls: Optional[torch.Tensor] = None,
+                     with_cache: bool = False):
     """Stage 2: approach phase, polish, deferred exact operator, f64
-    endgame and the final primal / details / warm state."""
+    endgame and the final primal / details / warm state.
+
+    ``polish_seed`` / ``polish_cls``: carried from a previous replay
+    step (`OperatorCache`); the polish then makes its first attempt on
+    the full batch straight from the warm state, and only the instances
+    it rejects run the approach phase and the gathered retries. With
+    ``with_cache`` returns ``(sol, warm, OperatorCache)``, else
+    ``(sol, warm)``."""
     nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
     B = qp.batch
     dev = qp.b.device
@@ -534,7 +647,7 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
             rho=g(st.rho), wk=g(wk), lbc=g(lbc), ubc=g(ubc),
             e_scale=g(prep.e), eps_bound=opts.eps_bound,
             eps_fcone=opts.eps_fcone, act_tol=opts.polish_act_tol,
-            newton_steps=opts.polish_newton_steps,
+            newton_steps=opts.polish_newton_steps, clock=clock,
         )
 
     def adopt(st, acc, p_s, p_mu, p_xres, p_lres, idx=None):
@@ -556,28 +669,73 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
         st.n_iter = _scatter_last(st.n_iter, idx, st.itv[idx], acc)
         st.done = _put_last(st.done, idx, st.done[idx] | acc)
 
+    def attempt_full(st, **kw):
+        """A polish attempt on the full batch; newly accepted instances
+        are adopted and frozen."""
+        p = polish_reduced(**polish_args(st), **kw)
+        acc = p.accept & ~st.done
+        adopt(st, acc, p.s, p.mu, p.x_res, p.lam_res)
+        return _Polish(x=p.x, accept=acc, seed=p.seed, cls=p.cls)
+
+    C_r = min(B, max(128, B // 8))
+
+    def attempt_gathered(st, pol, n_attempts):
+        """A retry polish on a capacity-gathered sub-batch of the
+        instances not yet accepted, from their refreshed seeds; every
+        retried instance takes the attempt's seed and classification."""
+        rem = ~pol.accept & ~st.done & (st.itv < max_iter)
+        idx = torch.argsort(-rem.float(), stable=True)[:C_r]
+        sel = rem[idx]
+        p = polish_reduced(**polish_args(st, idx), seed=pol.seed[idx])
+        acc_s = p.accept & sel
+        adopt(st, acc_s, p.s, p.mu, p.x_res, p.lam_res, idx=idx)
+        seed = pol.seed.clone()
+        seed[idx] = torch.where(sel[:, None, None], p.seed, seed[idx])
+        pol = _Polish(
+            x=_scatter_last(pol.x, idx, p.x, acc_s),
+            accept=_put_last(pol.accept, idx, pol.accept[idx] | acc_s),
+            seed=seed,
+            cls=_scatter_last(pol.cls, idx, p.cls, sel),
+        )
+        n_attempts = _put_last(n_attempts, idx, n_attempts[idx] + sel.int())
+        return pol, n_attempts
+
+    warm_polish = do_polish and polish_seed is not None
     if two_phase:
+        if warm_polish:
+            # warm attempt 0, full batch, straight from the warm state
+            # with the carried seed and classification: a replay step
+            # moves the data ~0.1%, so the previous active set is almost
+            # always still exact and one PDAS solve is the new solution.
+            # Accepted instances finish with n_iter 0 and stay frozen.
+            pol = attempt_full(st, seed=polish_seed, init_class=polish_cls)
+            n_attempts = torch.ones((B,), dtype=torch.int32, device=dev)
+            clock.mark("polish")
         # phase 1: plain-f32 approach to the coarse tolerance
         lift32(st)
         while st.it < n_chunks * K and not settled(st):
             chunk32(st, K, coarse_tol)
         clock.mark("approach")
-        # "crossed tau" is not converged
-        st.done = torch.zeros_like(st.done)
+        if warm_polish:
+            # coarse-point retry of the warm-rejected instances only,
+            # gathered, and skipped when attempt 0 accepted everyone
+            if not bool((pol.accept | (st.itv >= max_iter)).all()):
+                st.done = pol.accept.clone()
+                pol, n_attempts = attempt_gathered(st, pol, n_attempts)
+                clock.mark("polish")
+        else:
+            # "crossed tau" is not converged
+            st.done = torch.zeros_like(st.done)
+            if do_polish:
+                # attempt 1 at the coarse point, full batch
+                pol = attempt_full(st)
+                n_attempts = torch.ones((B,), dtype=torch.int32, device=dev)
+                clock.mark("polish")
         if do_polish:
-            # attempt 1 at the coarse point, full batch
-            p = polish_reduced(**polish_args(st))
-            acc = p.accept & ~st.done
-            adopt(st, acc, p.s, p.mu, p.x_res, p.lam_res)
-            pol = _Polish(x=p.x, accept=acc, seed=p.seed, cls=p.cls)
-            n_attempts = torch.ones((B,), dtype=torch.int32, device=dev)
-            clock.mark("polish")
-
             # re-polish rounds: rejected instances run a short f32 chunk
             # at a tighter tolerance, then retry on a capacity-gathered
             # sub-batch from the refreshed seed; a round is skipped once
             # every instance is accepted or out of iterations
-            C_r = min(B, max(128, B // 8))
             round_tau = coarse_tol
             for _ in range(opts.polish_rounds - 1):
                 round_tau = max(
@@ -590,25 +748,7 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
                 chunk32(st, opts.polish_interval, round_tau)
                 clock.mark("approach")
                 st.done = pol.accept.clone()
-                rem = ~pol.accept & ~st.done & (st.itv < max_iter)
-                idx = torch.argsort(-rem.float(), stable=True)[:C_r]
-                sel = rem[idx]
-                p = polish_reduced(
-                    **polish_args(st, idx), seed=pol.seed[idx]
-                )
-                acc_s = p.accept & sel
-                adopt(st, acc_s, p.s, p.mu, p.x_res, p.lam_res, idx=idx)
-                seed = pol.seed.clone()
-                seed[idx] = torch.where(sel[:, None, None], p.seed, seed[idx])
-                pol = _Polish(
-                    x=_scatter_last(pol.x, idx, p.x, acc_s),
-                    accept=_put_last(pol.accept, idx, pol.accept[idx] | acc_s),
-                    seed=seed,
-                    cls=_scatter_last(pol.cls, idx, p.cls, sel),
-                )
-                n_attempts = _put_last(
-                    n_attempts, idx, n_attempts[idx] + sel.int()
-                )
+                pol, n_attempts = attempt_gathered(st, pol, n_attempts)
                 clock.mark("polish")
     itv_f32 = st.itv.clone()
 
@@ -695,6 +835,14 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     )
     sol = FCCQPSolution(details=details, z=x.T.contiguous())
     clock.mark("finalize")
+    if with_cache:
+        cache = OperatorCache(
+            kkt_seed=prep.kkt_seed,
+            polish_seed=pol.seed if pol is not None else None,
+            polish_cls=pol.cls if pol is not None else None,
+            scales=Scaling(d=prep.d, e=prep.e, c=prep.c),
+        )
+        return sol, new_warm, cache
     return sol, new_warm
 
 
@@ -706,6 +854,7 @@ def solve_batched_ds(
     warm_start: bool = False,
     device=None,
     stage_times: Optional[dict] = None,
+    con_idx: Optional[tuple] = None,
 ):
     """Batched cold (or warm-started) solve on the reduced path.
 
@@ -718,12 +867,15 @@ def solve_batched_ds(
     device synchronize). ``stage_times``: a dict that receives the
     synchronized wall seconds of each stage (scaling, operator,
     approach, polish, exact_build, endgame, finalize); it adds a device
-    synchronize at every stage boundary.
+    synchronize at every stage boundary. ``con_idx``: the constrained
+    coordinates (`constrained_indices`), computed from ``qp`` when None;
+    the replays pass those of their whole log.
 
     Returns ``(FCCQPSolution, WarmStartDS)``.
     """
     dev = resolve_device(device)
-    con_idx = constrained_indices(qp, shape)
+    if con_idx is None:
+        con_idx = constrained_indices(qp, shape)
     _check_supported(opts, shape, len(con_idx))
     qp = QPBatchDS(*(a.to(dev) for a in qp))
     if warm is not None:
@@ -739,3 +891,170 @@ def solve_batched_ds(
     sync(dev)
     t2 = time.perf_counter()
     return stamp_solution_times(sol, t2 - t0, t1 - t0), ws
+
+
+def _solve_ds_reduced(qp, warm, shape, opts, warm_start, con_idx,
+                      cache: Optional[OperatorCache] = None,
+                      with_cache: bool = False,
+                      clock: Optional[StageClock] = None):
+    """The composed reduced solve of one replay step (the port of
+    `fcc_qp_tpu.core.ds_engine._solve_ds_reduced_jit`): both stages with
+    no phase timing. ``cache``: carried operator seeds, scales and
+    polish classification; ``with_cache`` returns
+    ``(sol, warm, OperatorCache)``."""
+    cache = cache if cache is not None else OperatorCache()
+    prep = _prepare_reduced(
+        qp, warm, shape, opts, warm_start, con_idx, clock=clock,
+        kkt_seed=cache.kkt_seed, scales=cache.scales,
+    )
+    return _iterate_reduced(
+        qp, prep, shape, opts, con_idx, clock=clock,
+        polish_seed=cache.polish_seed, polish_cls=cache.polish_cls,
+        with_cache=with_cache,
+    )
+
+
+def _to_global(sols, S: int):
+    """Per-step solutions, each over the same ``S`` streams, stacked in
+    global time order: row ``s * steps + t`` is stream s's step t."""
+
+    def g(*per_step):
+        a = torch.stack(per_step, dim=1)          # (S, steps, ...)
+        return a.reshape(S * len(per_step), *a.shape[2:])
+
+    det = FCCQPDetails(**{
+        f.name: g(*(getattr(sol.details, f.name) for sol in sols))
+        for f in dataclasses.fields(FCCQPDetails)
+    })
+    return FCCQPSolution(details=det, z=g(*(sol.z for sol in sols)))
+
+
+def replay_ds_streams(
+    qps: QPBatchDS,
+    shape: ProblemShape,
+    opts: FCCQPOptions = FCCQPOptions(),
+    n_streams: int = 1024,
+    device=None,
+    stage_times: Optional[dict] = None,
+):
+    """Warm-started multi-stream replay: the port of
+    `fcc_qp_tpu.core.ds_engine.replay_ds_streams`.
+
+    The length-T log ``qps`` (batch-last, time on the last axis) is
+    split into ``n_streams`` parallel streams of ``T / S`` consecutive
+    steps (stream s owns global steps ``[s*T/S, (s+1)*T/S)``). Step 0 of
+    every stream is one cold batched solve; each later step is a warm
+    solve of all S streams at once that threads the `WarmStartDS` and
+    the `OperatorCache` of the step before (a Python loop on the device
+    in place of the JAX package's `lax.scan`). Each stream is the
+    reference's serial warm-started loop; the streams fill the card.
+
+    Runs on ``device`` (default CUDA; raises when there is no card).
+    Options this port does not cover raise `NotImplementedError`, as in
+    `solve_batched_ds`. ``stage_times``: a dict that receives, under
+    ``"step0"`` and ``"warm"``, the synchronized stage seconds of the
+    cold step and their sums over the warm steps, with the instance
+    counts ``n_kkt_rescue`` (cold KKT-seed rebuilds of non-contracting
+    refreshes) and ``n_polish_rebuild`` (cold polish-seed rebuilds); it
+    adds a device synchronize at every stage boundary.
+
+    Returns ``(solutions, final_warm)``: the solutions stacked in GLOBAL
+    time order (row t is step t of the log), with ``details.solve_time``
+    the replay wall over the number of steps and
+    ``details.factorization_time`` a cached probe of one cold
+    factorization stage on the step-0 batch, measured after the replay.
+    """
+    dev = resolve_device(device)
+    T = qps.batch
+    S = n_streams
+    if T % S != 0:
+        raise ValueError(f"T={T} must be a multiple of n_streams={S}")
+    steps = T // S
+    con_idx = constrained_indices(qps, shape)
+    _check_supported(opts, shape, len(con_idx))
+
+    # step-major copy of the log: element [t, ..., s] is global step
+    # s*steps + t, and each step is one contiguous (..., S) view
+    def step_major(a):
+        a = a.to(dev).reshape(*a.shape[:-1], S, steps)
+        return a.movedim(-1, 0).contiguous()
+
+    log = QPBatchDS(*(step_major(a) for a in qps))
+
+    def step(t):
+        return QPBatchDS(*(a[t] for a in log))
+
+    def stage(key):
+        if stage_times is None:
+            return None
+        return StageClock(stage_times.setdefault(key, {}), dev)
+
+    # each step is a named range for `torch.profiler` (exp_torch_profile.py)
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.profiler.record_function("replay_step0"):
+        sol, ws, cache = _solve_ds_reduced(
+            step(0), None, shape, opts, False, con_idx, with_cache=True,
+            clock=stage("step0"),
+        )
+    sols = [sol]
+    for t in range(1, steps):
+        with torch.profiler.record_function("replay_warm_step"):
+            sol, ws, cache = _solve_ds_reduced(
+                step(t), ws, shape, opts, True, con_idx, cache=cache,
+                with_cache=True, clock=stage("warm"),
+            )
+        sols.append(sol)
+    sync(dev)
+    t_total = time.perf_counter() - t0
+    out = _to_global(sols, S)
+    factor_t = _factor_probe(step(0), shape, opts, con_idx)
+    return stamp_solution_times(out, t_total / steps, factor_t), ws
+
+
+_FACTOR_PROBE_CACHE: dict = {}
+
+
+def _factor_probe(qp0: QPBatchDS, shape, opts, con_idx) -> float:
+    """Measured wall seconds of one cold factorization stage on the
+    step-0 batch (cached per configuration, batch size and device; a
+    first, untimed run warms up)."""
+    dev = qp0.b.device
+    key = (shape, opts, con_idx, qp0.batch, str(dev))
+    if key not in _FACTOR_PROBE_CACHE:
+        run = lambda: _prepare_reduced(qp0, None, shape, opts, False, con_idx)
+        run()
+        sync(dev)
+        t0 = time.perf_counter()
+        run()
+        sync(dev)
+        _FACTOR_PROBE_CACHE[key] = time.perf_counter() - t0
+    return _FACTOR_PROBE_CACHE[key]
+
+
+def replay_ds(
+    qps: QPBatchDS,
+    shape: ProblemShape,
+    opts: FCCQPOptions = FCCQPOptions(),
+    device=None,
+):
+    """Serial warm-started replay (the port of
+    `fcc_qp_tpu.core.ds_engine.replay_ds`): step 0 is a cold solve of
+    one instance, and each later step a `solve_batched_ds` of one
+    instance warm-started from the step before, without the operator
+    cache (as in the JAX package). The log's time axis is the last.
+
+    Returns ``(solutions, final_warm)`` with the solutions in time order
+    over a batch of T (the JAX package returns them as (T, 1, ...)).
+    """
+    dev = resolve_device(device)
+    con_idx = constrained_indices(qps, shape)
+    sols, ws = [], None
+    for t in range(qps.batch):
+        qp_t = QPBatchDS(*(a[..., t:t + 1].contiguous() for a in qps))
+        sol, ws = solve_batched_ds(
+            qp_t, shape, opts, warm=ws, warm_start=t > 0, device=dev,
+            con_idx=con_idx,
+        )
+        sols.append(sol)
+    return _to_global(sols, 1), ws

@@ -140,12 +140,43 @@ def kkt_inverse_f32_seed(
         [torch.cat([F, G], dim=-1), torch.cat([T, -Sinv], dim=-1)], dim=-2
     )
 
+    return _ns_polish_guarded(X, _kkt_f32(Qb, Ab, dvec), steps=3)
+
+
+def _kkt_f32(Qb: torch.Tensor, Ab: torch.Tensor, dvec: torch.Tensor):
+    """The true (unregularized) f32 KKT [[Q + diag(rho), A'],[A, 0]],
+    batch-leading (B, N, N), from batch-leading f32 Qb (B, n, n), Ab
+    (B, m, n) and dvec (B, n)."""
+    B, n, _ = Qb.shape
     m = Ab.shape[1]
+    eye_n = torch.eye(n, dtype=torch.float32, device=Qb.device)
     Mb = Qb.new_zeros((B, n + m, n + m))
     Mb[:, :n, :n] = Qb + dvec[:, :, None] * eye_n
-    Mb[:, :n, n:] = At
+    Mb[:, :n, n:] = Ab.transpose(-1, -2)
     Mb[:, n:, :n] = Ab
-    return _ns_polish_guarded(X, Mb, steps=3)
+    return Mb
+
+
+def kkt_inverse_f32_refresh(
+    X_prev: torch.Tensor, Q: torch.Tensor, A: torch.Tensor,
+    rho: torch.Tensor, steps: int = 3,
+):
+    """Refresh a carried f32 KKT inverse seed against the CURRENT
+    (unregularized) KKT: the warm-operator path of sequential replay
+    (`fcc_qp_tpu.ops.ds_linalg.kkt_inverse_f32_refresh`).
+
+    A control-rate replay moves (Q, A_eq) by ~0.1% a step, so the
+    previous step's inverse has an NS residual far below 1, and a few
+    guarded Newton-Schulz steps restore it to the f32 floor in place of
+    the Schur seed build. X_prev (B, N, N) f32 batch-LEADING; Q, A, rho
+    as for `kkt_inverse_f32_seed`, whose contract this shares: returns
+    ``(X, resid)``, and callers route instances with a large residual
+    (the data jumped) to the same fallback.
+    """
+    n = Q.shape[0]
+    Mb = _kkt_f32(Q.permute(2, 0, 1).float(), A.permute(2, 0, 1).float(),
+                  _rho_vec(rho, n).float())
+    return _ns_polish_guarded(X_prev, Mb, steps=steps)
 
 
 def refine_inverse_columns_ds(

@@ -218,14 +218,17 @@ def _ns_refresh_guarded(X, Mb, steps: int):
     return X_best, r_best
 
 
-def _seed_refresh_or_rebuild(seed, Mb, steps: int):
+def _seed_refresh_or_rebuild(seed, Mb, steps: int, clock=None):
     """Refresh a carried seed; instances whose refresh does not contract
     (residual > 0.3) get a cold rebuild, capacity-gathered
     (``max(128, B // 8)`` per pass) and looping until every one is
-    rebuilt."""
+    rebuilt. ``clock`` (`utils.timing.StageClock`) counts the rebuilt
+    instances (``n_polish_rebuild``)."""
     B = Mb.shape[0]
     X, r = _ns_refresh_guarded(seed, Mb, steps)
     rem = r > 0.3
+    if clock is not None:
+        clock.count("n_polish_rebuild", rem)
     C = min(B, max(128, B // 8))
     if bool(rem.any()):
         X = X.clone()
@@ -301,6 +304,7 @@ def polish_reduced(
     newton_steps: int = 2,
     seed: Optional[torch.Tensor] = None,
     init_class: Optional[torch.Tensor] = None,
+    clock=None,
 ) -> PolishResult:
     """Attempt an active-set polish of every instance in the batch.
 
@@ -310,6 +314,7 @@ def polish_reduced(
     (`PolishResult.seed`), refreshed instead of rebuilt.
     ``init_class``: packed classification to use for the first assembly
     instead of a fresh inflated read (must accompany a carried seed).
+    ``clock``: a `utils.timing.StageClock` that counts the seed rebuilds.
     """
     nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
     m = qps.A_eq.shape[0]
@@ -488,7 +493,8 @@ def polish_reduced(
             c, low, up, surf, apex, lam_lin, eta
         )
         Mb = _assemble_m2_masked(Q_aug.float(), pin, A2.float(), Dtail)
-        X = _polish_seed_f32(Mb) if X is None else _seed_refresh_or_rebuild(X, Mb, 2)
+        X = (_polish_seed_f32(Mb) if X is None
+             else _seed_refresh_or_rebuild(X, Mb, 2, clock))
         x, y, raw = _solve_structured_masked(X, Q_aug, pin, A2, A2t, Dtail, r1, r2)
         mu_new = reconstruct_duals(c, x, y, raw, low, up, surf, apex)
         s_new, x_res, lam_res, _, score = accept_eval(c, x, mu_new)

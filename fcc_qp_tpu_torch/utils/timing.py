@@ -53,8 +53,9 @@ def cuda_span(out: dict, key: str):
 class StageClock:
     """Accumulates synchronized wall seconds per named stage of a solve
     into ``out`` (`mark` closes the stage that ran since the previous
-    mark). With ``out=None`` it neither synchronizes nor records, so an
-    untimed solve keeps its asynchronous launches."""
+    mark), and instance counts (`count`). With ``out=None`` it neither
+    synchronizes nor records, so an untimed solve keeps its asynchronous
+    launches."""
 
     def __init__(self, out=None, device=None):
         self.out, self.device = out, device
@@ -70,4 +71,11 @@ class StageClock:
         now = time.perf_counter()
         self.out[stage] = self.out.get(stage, 0.0) + (now - self.t)
         self.t = now
+
+    def count(self, key: str, mask: torch.Tensor) -> None:
+        """Adds the number of set entries of ``mask`` to ``out[key]`` (a
+        host read, so only when recording)."""
+        if self.out is None:
+            return
+        self.out[key] = self.out.get(key, 0) + int(mask.sum())
 

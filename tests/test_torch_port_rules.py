@@ -81,6 +81,35 @@ def test_uncovered_options_raise(kw):
                            device="cpu")
 
 
+def test_replay_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    qp = T.to_ds_batch(
+        stack_qp_dicts(generate_osc_batch(CASSIE, 4, seed=0)), device="cpu"
+    )
+    opts = T.FCCQPOptions(presolve="operator", scaling=True,
+                          splitting="constrained")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.replay_ds_streams(qp, CASSIE.shape, opts, n_streams=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.replay_ds(qp, CASSIE.shape, opts)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(adaptive_rho=True), dict(alpha=1.5), dict(kkt_factor="ds"),
+    dict(splitting="full"), dict(presolve="exact"),
+])
+def test_replay_uncovered_options_raise(kw):
+    base = dict(presolve="operator", scaling=True, splitting="constrained")
+    qp = T.to_ds_batch(
+        stack_qp_dicts(generate_osc_batch(CASSIE, 4, seed=0)), device="cpu"
+    )
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.replay_ds_streams(qp, CASSIE.shape,
+                            T.FCCQPOptions(**{**base, **kw}), n_streams=2,
+                            device="cpu")
+
+
 def _chunk_inputs(dtype, B=8, k=7, kb=4, seed=0):
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
