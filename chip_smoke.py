@@ -7,10 +7,10 @@ from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
 (any failure exits non-zero, and nothing is caught):
 
-1. Build both ADMM chunk kernels from `fcc_qp_tpu_torch/csrc` (nvcc,
-   sm_90a) and print the build seconds, the compiler's register report
-   (which must show no stack frame and no spills in any instantiation)
-   and the card's name and power limit.
+1. Build the three ADMM chunk kernels from `fcc_qp_tpu_torch/csrc`
+   (nvcc, sm_90a) and print the build seconds, the compiler's register
+   report (which must show no stack frame and no spills in any
+   instantiation) and the card's name and power limit.
 2. Main path: a cold batched Cassie solve, B=8192
    (`generate_osc_batch(CASSIE, 8192, seed=0)` -> `to_ds_batch` ->
    `solve_batched_ds`) at the bench flags (polish on, 4 rounds), run
@@ -47,11 +47,33 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    z to 1e-12). Each kernel is then held against its plain version on
    its last chunk of a warm step (``*_warm`` keys; the f64 kernel only
    where a warm step launched it).
-6. One JSON line with a record per kernel (the first chunk's numbers
+6. The reference-semantics path: the full-splitting engine (the package
+   defaults' path) on the same Cassie batch, B=8192, at `FULL_OPTS`
+   (exact presolve, adaptive rho), run once to warm up, three times
+   timed and once staged. Checks: no kFactorizationFailed and no NaN,
+   residuals <= 1e-6 on kSuccess, a kSuccess share at least the JAX
+   package's on the first 512 instances less 1%, the full-layout kernel
+   launched.
+7. The drop-in `FCCQP(60, 38, 12, 38)` over a 200-step walking log, the
+   reference loop (``set_warm_start(i > 0)``), on the f64 engine at the
+   README quick-start options and on the ds engine with rho = 0.05:
+   per-Solve wall p50 / p95, solve and factorization time p50, n_iter
+   and statuses. Checks: no kFactorizationFailed, the kSuccess count
+   within two of the JAX package's on the CPU, and on every kSuccess
+   step the equality residual, bounds and cones; then the verify notes'
+   probes on both engines.
+8. The full-layout kernel against its plain version on the full solve's
+   first and last chunks and one B = 1 chunk of the f64 drop-in replay
+   (timed, with bounds), and on a quadruped chunk whose cone triple
+   straddles a warp's two row slots: state, counters and max-norms bit
+   for bit, the 2-norms to 1e-12 relative.
+9. One JSON line with a record per kernel (the first chunk's numbers
    under the plain keys, the straggler chunk's under ``*_tail``, the
-   humanoid's under ``*_k47``, the warm step's under ``*_warm``;
-   ``ms_idle`` is a launch on the straggler inputs with every instance
-   done), the `nvidia-smi` line, and the final JSON status line.
+   humanoid's under ``*_k47``, the warm step's under ``*_warm``, the
+   drop-in chunk's under ``*_b1``; ``ms_idle`` is a launch on the
+   straggler inputs with every instance done; ``launches`` sums every
+   path's count, and ``launches_<path>`` splits it), the `nvidia-smi`
+   line, and the final JSON status line.
 
 Also printed: the bench solve's host seconds per chunk (the approach and
 endgame stage seconds over their launches), beside the kernels' own
@@ -75,6 +97,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f64": 34e12, "f32": 67e12}
 # about 0.5 ms of spin per timed call at the H100's 1.98 GHz boost clock
 SPIN_CYCLES_PER_CALL = 1_000_000
+# the reduced path's kernels (phases 2-5); the full-layout kernel runs on
+# the reference-semantics path (phases 6-8)
+REDUCED_KERNELS = ("admm_chunk_f64", "admm_chunk_f32")
 
 
 def log(msg: str) -> None:
@@ -129,10 +154,12 @@ class Recorder:
     """Wraps a kernel wrapper in the engine's namespace and keeps a copy
     of the inputs of its first and of its last call, and of its last
     call from a warm replay step (one where some instance is done
-    without having iterated: accepted by the warm polish attempt 0)."""
+    without having iterated: accepted by the warm polish attempt 0).
+    ``done_at`` / ``itv_at``: where the wrapper takes those arguments."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, done_at=12, itv_at=14):
         self.fn = fn
+        self.done_at, self.itv_at = done_at, itv_at
         self.first = None
         self.last = None
         self.last_warm = None
@@ -147,7 +174,7 @@ class Recorder:
         )
         if self.first is None:
             self.first = self.last
-        done, itv = args[12], args[14]
+        done, itv = args[self.done_at], args[self.itv_at]
         if bool((done & (itv == 0)).any()):
             self.last_warm = self.last
         return self.fn(*args, **kw)
@@ -421,7 +448,7 @@ def replay_phase(engine, bench):
     # after a step that needed retries can carry a refined solve only as
     # exact as the acceptance test demands, |A_eq z - b_eq| < eps_bound
     # (the JAX package accepts the same steps with 1.3e-8 - 3.3e-7 on the
-    # CPU, tests/test_torch_replay_long.py; ROADMAP.md queue C). Warm
+    # CPU, tests/test_torch_replay.py; ROADMAP.md queue C). Warm
     # polish-accepted steps are held to that test's bound.
     b_eq = np.abs(stacked["b_eq"]).max(axis=1)
     accf = acc.reshape(-1) > 0
@@ -444,8 +471,8 @@ def replay_phase(engine, bench):
     z = q(sols.z)
     check(np.isfinite(z).all() and z.shape == (REPLAY_T, 60),
           "replay solution not finite or of the wrong shape")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched in the replay")
+    for name in REDUCED_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched in the replay")
 
     # step 0 of every stream (rows s*steps) is the cold batched solve of
     # those instances; the replay takes its constrained coordinates from
@@ -481,6 +508,299 @@ def replay_phase(engine, bench):
 
     # a recorded replay (not counted) keeps each kernel's last warm chunk
     _, rec = recorded_solve(engine, replay)
+    return launches, rec
+
+
+# the full-splitting engine's options of the JAX package's own tests
+# (tests/test_ds_engine.py:15,46): the package defaults' path, exact
+# presolve, adaptive rho
+FULL_OPTS = dict(max_iter=2000, rho=1.0, eps_fcone=1e-6, eps_bound=1e-6,
+                 adaptive_rho=True)
+# kSuccess share of the JAX package on the first 512 instances of
+# generate_osc_batch(CASSIE, 8192, seed=0) at FULL_OPTS, on the CPU
+# (exp_full_reference.py: 509 of 512, and the port's plain versions the
+# same 509 with every n_iter equal); the card must reach it less 1%
+FULL_JAX_SHARE_512 = 509 / 512
+# the drop-in replay (the reference loop over a 200-step walking log):
+# the README quick-start options on the f64 engine, and the same with the
+# equilibrated-space rho on the ds engine
+DROPIN_STEPS = 200
+DROPIN_OPTS = dict(rho=5e-5, eps_fcone=1e-6, eps_bound=1e-6, max_iter=100)
+DROPIN_DS_RHO = 0.05
+# the statuses of the same two loops in the JAX package on the CPU
+# (exp_full_reference.py; the port's plain versions on the CPU give the
+# same): {engine: (kSuccess, kMaxIterations)}. At max_iter = 100 the f64
+# engine runs every step of this synthetic log to the cap (the README's
+# rho is the real log's); the card may differ by two steps, since its
+# matrix products round differently from the CPU's
+DROPIN_JAX_STATUSES = {"f64": (0, 200), "ds": (162, 38)}
+FULL_NAMES = ("x", "x_bar", "lam_bar", "mu_x", "mu_lam", "v", "done",
+              "n_iter", "itv", "xrn", "lrn", "prim", "dual")
+
+
+def full_bound(args, kw, out):
+    """`chunk_bound` for the full-layout chunk: bytes of the operator and
+    per-instance data of the instances that iterate plus every
+    instance's state in and out; (2n^2 + 16n + 12 ncones) flops per
+    instance-iteration run, against the FP64 peak."""
+    n, Bn = args[8].shape
+    nc = args[10].shape[0]
+    ncones = nc // 3
+    itv_in = args[16]
+    active = int((out[8] > itv_in).sum())
+    iters = int((out[8] - itv_in).sum())
+    per_active = (n * n + 3 * n + ncones + 1) * 8
+    state = (4 * n + 2 * nc + 4) * 8 + 3 * 4
+    nbytes = active * per_active + 2 * Bn * state
+    flops = iters * (2 * n * n + 16 * n + 12 * ncones)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["f64"]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                active=active, iters=iters, n=n, B=Bn)
+
+
+def compare_full(case, kernel, plain, args, kw, time_it=True):
+    """`admm_chunk_full_f64` against its plain version on the same inputs:
+    the state, the counters and the max-norms bit for bit, the 2-norms
+    (sums whose order PyTorch's reduction picks) to 1e-12 relative."""
+    import torch
+
+    out_k = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    out_p = plain(*args, **kw)
+    torch.cuda.synchronize()
+    max_err = 0.0
+    for name, a, b in zip(FULL_NAMES, out_k, out_p):
+        if name in ("prim", "dual"):
+            rel = float(((a - b).abs() / (1.0 + b.abs())).max())
+            check(rel <= 1e-12, f"admm_chunk_full_f64 [{case}]: {name} rel "
+                  f"diff {rel:.3e}")
+            continue
+        if a.is_floating_point() and a.numel():
+            max_err = max(max_err, float((a - b).abs().max()))
+        check(torch.equal(a, b), f"admm_chunk_full_f64 [{case}]: {name} "
+              f"differs from the plain version")
+    bound = full_bound(args, kw, out_k)
+    rec = dict(max_abs_err=max_err, **bound)
+    if time_it:
+        ms, issue_ms = time_cuda(lambda: kernel(*args, **kw), reps=20)
+        plain_ms, _ = time_cuda(lambda: plain(*args, **kw), reps=3)
+        rec.update(ms=ms, plain_ms=plain_ms, issue_ms=issue_ms)
+    longest = int((out_k[8] - args[16]).max())
+    log(f"[kernel] admm_chunk_full_f64 [{case}]: n={bound['n']} "
+        f"B={bound['B']} ls={kw['ls']} K={kw['K']} gate={kw['gate']} active "
+        f"{bound['active']}, iterations run {bound['iters']} (longest "
+        f"{longest}), max |diff| {max_err:.3e}"
+        + (f", kernel {rec['ms']:.6f} ms (host issue {rec['issue_ms']:.6f} "
+           f"ms per call), plain {rec['plain_ms']:.6f} ms" if time_it else "")
+        + f", bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})")
+    return rec
+
+
+def recorded_full(module, run):
+    """``run()`` with `admm_chunk_full_f64` in ``module`` wrapped in a
+    `Recorder`; returns ``(result, recorder)``."""
+    rec = Recorder(module.admm_chunk_full_f64, done_at=14, itv_at=16)
+    module.admm_chunk_full_f64 = rec
+    try:
+        out = run()
+    finally:
+        module.admm_chunk_full_f64 = rec.fn
+    return out, rec
+
+
+def full_phase(engine):
+    """Phase 6: the full-splitting cold Cassie solve, B = 8192, at
+    FULL_OPTS. Returns its launches and a recorder of one more solve."""
+    import numpy as np
+    import torch
+
+    from fcc_qp_tpu_torch import FCCQPOptions, solve_batched_ds, to_ds_batch
+    from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_batch
+    from fcc_qp_tpu_torch.ops import pallas_admm
+    from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
+
+    stacked = stack_qp_dicts(generate_osc_batch(CASSIE, B, seed=0))
+    qp = to_ds_batch(stacked)
+    opts = FCCQPOptions(**FULL_OPTS)
+    t0 = time.perf_counter()
+    solve_batched_ds(qp, CASSIE.shape, opts)
+    torch.cuda.synchronize()
+    log(f"[full] warm-up solve {time.perf_counter() - t0:.3f} s")
+    walls = []
+    for i in range(3):
+        if i == 0:
+            pallas_admm.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = solve_batched_ds(qp, CASSIE.shape, opts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            sol = out
+            launches = {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
+    wall = sorted(walls)[1]
+    stages = {}
+    solve_batched_ds(qp, CASSIE.shape, opts, stage_times=stages)
+    d = sol.details
+    q = lambda t: t.cpu().numpy()
+    st, n_iter = q(d.solve_status), q(d.n_iter)
+    ok = st == 0
+    rb, rc = q(d.admm_residual_bounds), q(d.admm_residual_friction_cone)
+    eqv = q(d.equality_viol)
+    z = q(sol.z)
+    log("[full] timed walls (s): " + json.dumps(walls))
+    log(f"[full] Cassie B={B} full splitting, exact presolve, adaptive rho: "
+        f"kSuccess {ok.sum()}/{len(st)} = {ok.mean():.4%}; kMaxIterations "
+        f"{(st == 1).sum()}; kFactorizationFailed {(st == 2).sum()}")
+    log(f"[full] n_iter p50 {np.median(n_iter):.0f}, max {n_iter.max()}; "
+        f"max residuals kSuccess (bounds, cone) ({rb[ok].max():.3e}, "
+        f"{rc[ok].max():.3e}); max equality_viol {eqv.max():.3e}")
+    log(f"[full] median wall {wall:.6f} s -> {B / wall:.1f} solves/s; "
+        f"factorization_time {float(d.factorization_time[0]):.6f} s of "
+        f"solve_time {float(d.solve_time[0]):.6f} s; stage seconds (and "
+        f"the adaptive-rho refactor count) " + json.dumps(stages))
+    log("[full] launches: " + json.dumps(launches))
+    check((st != 2).all(), "kFactorizationFailed in the full-splitting solve")
+    check(np.isfinite(z).all() and z.shape == (B, 60),
+          "full-splitting solution not finite or of the wrong shape")
+    check(not np.isnan(rb).any() and not np.isnan(rc).any(),
+          "NaN residual in the full-splitting solve")
+    check((np.maximum(rb, rc)[ok] <= 1e-6).all(),
+          "full-splitting kSuccess residual above 1e-6")
+    bar = FULL_JAX_SHARE_512 - 0.01
+    check(ok.mean() >= bar, f"full-splitting kSuccess {ok.mean():.4%} < "
+          f"{bar:.4%}")
+    check(launches["admm_chunk_full_f64"] > 0,
+          "admm_chunk_full_f64 was not launched in the full-splitting solve")
+    _, rec = recorded_full(
+        engine, lambda: solve_batched_ds(qp, CASSIE.shape, opts))
+    return launches, rec
+
+
+def dropin_phase(solver_mod):
+    """Phase 7: the drop-in `FCCQP` over a 200-step walking log, the
+    reference loop, on both engines; then the verify notes' probes.
+    Returns {engine: launches} and a recorder of the f64 loop's last
+    chunk."""
+    import numpy as np
+    import torch
+
+    from fcc_qp_tpu_torch import FCCQP, FCCQPOptions
+    from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_sequence
+    from fcc_qp_tpu_torch.ops import pallas_admm
+
+    seq = generate_osc_sequence(CASSIE, DROPIN_STEPS, seed=0)
+    keys = ("Q", "b", "A_eq", "b_eq", "friction_coeffs", "lb", "ub")
+    launches, rec = {}, None
+    for engine, rho in (("f64", DROPIN_OPTS["rho"]), ("ds", DROPIN_DS_RHO)):
+        solver = FCCQP(60, 38, 12, 38, engine=engine)
+        solver.set_options(FCCQPOptions(**dict(DROPIN_OPTS, rho=rho)))
+
+        def loop():
+            out, walls = [], []
+            for i, qp in enumerate(seq):
+                solver.set_warm_start(i > 0)
+                t0 = time.perf_counter()
+                solver.Solve(*(qp[k] for k in keys))
+                res = solver.GetSolution()
+                walls.append(time.perf_counter() - t0)
+                out.append(res)
+            return out, walls
+
+        pallas_admm.reset_launch_counts()
+        if engine == "f64":
+            (res, walls), rec = recorded_full(solver_mod, loop)
+        else:
+            res, walls = loop()
+        launches[engine] = {fn.__name__: fn.launches
+                            for fn in pallas_admm.KERNELS}
+        det = [r.details for r in res]
+        st = np.array([x.solve_status for x in det])
+        n_iter = np.array([x.n_iter for x in det])
+        ms = np.array(walls) * 1e3
+        log(f"[dropin:{engine}] {DROPIN_STEPS} steps: Solve+GetSolution wall "
+            f"p50 {np.median(ms):.3f} ms, p95 {np.percentile(ms, 95):.3f} "
+            f"ms; solve_time p50 "
+            f"{np.median([x.solve_time for x in det]) * 1e3:.3f} ms, "
+            f"factorization_time p50 "
+            f"{np.median([x.factorization_time for x in det]) * 1e3:.3f} ms")
+        log(f"[dropin:{engine}] statuses kSuccess {(st == 0).sum()}, "
+            f"kMaxIterations {(st == 1).sum()}, kFactorizationFailed "
+            f"{(st == 2).sum()}; n_iter p50 {np.median(n_iter):.0f}, max "
+            f"{n_iter.max()}, step 0 {n_iter[0]}; polish accepted "
+            f"{sum(x.polish_accepted for x in det)}; launches "
+            + json.dumps(launches[engine]))
+        want = DROPIN_JAX_STATUSES[engine]
+        log(f"[dropin:{engine}] the JAX package on the CPU: kSuccess "
+            f"{want[0]}, kMaxIterations {want[1]}")
+        check((st != 2).all(), f"drop-in {engine}: kFactorizationFailed")
+        check(abs(int((st == 0).sum()) - want[0]) <= 2,
+              f"drop-in {engine}: kSuccess count {(st == 0).sum()} is not "
+              f"the JAX package's {want[0]} (+-2)")
+        # every kSuccess step: equality, bounds and cones
+        for i in np.where(st == 0)[0]:
+            qp, r = seq[i], res[i]
+            z = r.z
+            eq = np.abs(qp["A_eq"] @ z - qp["b_eq"]).max()
+            check(np.isfinite(z).all() and z.shape == (60,),
+                  f"drop-in {engine} step {i}: z not finite")
+            check(eq <= 1e-6 * (1.0 + np.abs(qp["b_eq"]).max()),
+                  f"drop-in {engine} step {i}: |A_eq z - b_eq| {eq:.3e}")
+            check(r.details.bounds_viol <= 1e-5 and
+                  r.details.friction_cone_viol <= 1e-5,
+                  f"drop-in {engine} step {i}: bounds / cone violation "
+                  f"{r.details.bounds_viol:.3e} / "
+                  f"{r.details.friction_cone_viol:.3e}")
+    check(launches["f64"]["admm_chunk_full_f64"] > 0,
+          "admm_chunk_full_f64 was not launched in the f64 drop-in replay")
+
+    # the verify notes' probes, on both engines
+    rng = np.random.default_rng(0)
+    for engine in ("f64", "ds"):
+        try:
+            FCCQP(10, 2, 4, 0, engine=engine)
+        except ValueError:
+            pass
+        else:
+            fail(f"probe {engine}: FCCQP(10, 2, 4, 0) did not raise")
+        s = FCCQP(60, 38, 12, 38, engine=engine)
+        try:
+            s.GetSolution()
+        except RuntimeError:
+            pass
+        else:
+            fail(f"probe {engine}: GetSolution() before Solve() did not raise")
+        qp = seq[0]
+        for bad, what in ((dict(qp, Q=np.eye(59)), "a wrong Q shape"),
+                          (dict(qp, lb=qp["ub"] + 1.0), "lb > ub")):
+            try:
+                s.Solve(*(bad[k] for k in keys))
+            except ValueError:
+                pass
+            else:
+                fail(f"probe {engine}: {what} did not raise")
+        # equality-only: no cones, every bound infinite
+        n, m = 12, 5
+        G = rng.normal(size=(n, n))
+        A = rng.normal(size=(m, n))
+        eq_qp = dict(Q=G @ G.T + 0.1 * np.eye(n), b=rng.normal(size=n),
+                     A_eq=A, b_eq=A @ rng.normal(size=n),
+                     friction_coeffs=np.zeros(0), lb=np.full(n, -np.inf),
+                     ub=np.full(n, np.inf))
+        s = FCCQP(n, m, 0, 0, engine=engine)
+        s.Solve(*(eq_qp[k] for k in keys))
+        r = s.GetSolution()
+        res_eq = np.abs(A @ r.z - eq_qp["b_eq"]).max()
+        check(r.details.n_iter == 0 and r.details.solve_status == 0
+              and res_eq <= 1e-9,
+              f"probe {engine}: equality-only problem n_iter "
+              f"{r.details.n_iter}, status {r.details.solve_status}, "
+              f"|A z - b| {res_eq:.3e}")
+    log("[dropin] probes passed on both engines: FCCQP(10, 2, 4, 0), a wrong "
+        "Q shape and lb > ub raise, GetSolution() before Solve() raises, an "
+        "equality-only problem gives n_iter 0 and an exact A_eq residual")
     return launches, rec
 
 
@@ -611,9 +931,9 @@ def main() -> int:
     check((st2 != 2).all(), "kFactorizationFailed in the two-phase solve")
     check(ok2.mean() >= 0.90, f"two-phase kSuccess {ok2.mean():.4%} < 90%")
     check((res2[ok2] <= 1e-6).all(), "two-phase kSuccess residual above 1e-6")
-    for fn in pallas_admm.KERNELS:
-        total = launches_bench[fn.__name__] + launches_tp[fn.__name__]
-        check(total > 0, f"{fn.__name__} was never launched")
+    for name in REDUCED_KERNELS:
+        total = launches_bench[name] + launches_tp[name]
+        check(total > 0, f"{name} was never launched")
 
     # humanoid (k = 47 > 32): the kernels' two-slot layout. Its
     # convergence is not checked (it fails in the reference itself).
@@ -698,7 +1018,66 @@ def main() -> int:
                  bound_ms_warm=w["bound_ms"], bound_by_warm=w["bound_by"],
                  active_warm=w["active"], max_abs_err_warm=w["max_abs_err"])
 
-    # 6. result lines
+    # 6. the full-splitting engine (the package defaults' path) at
+    # Cassie's full width, and 7. the drop-in FCCQP replay on both engines
+    import fcc_qp_tpu_torch.core.solver as solver_mod
+    from fcc_qp_tpu_torch.models.osc import QUADRUPED
+
+    launches_full, rec_full = full_phase(engine)
+    launches_dropin, rec_dropin = dropin_phase(solver_mod)
+    for r in records:
+        r["launches_full"] = launches_full[r["name"]]
+        r["launches_dropin"] = sum(v[r["name"]]
+                                   for v in launches_dropin.values())
+        r["launches"] += r["launches_full"] + r["launches_dropin"]
+
+    # 8. the full-layout kernel against its plain version: the full
+    # solve's first chunk (every instance active) and last chunk (the
+    # stragglers), one B = 1 chunk of the f64 drop-in replay, and (state
+    # and counters only) a quadruped chunk, whose cone triple at rows
+    # 30-32 straddles the two row slots of a warp
+    full_k = pallas_admm.admm_chunk_full_f64
+    full_p = pallas_admm.admm_chunk_full_f64_plain
+    first = compare_full("first", full_k, full_p, *rec_full.first)
+    tail = compare_full("tail", full_k, full_p, *rec_full.last)
+    b1 = compare_full("dropin_b1", full_k, full_p, *rec_dropin.last)
+    check(first["active"] == B, "the full solve's first chunk is not all "
+          "active")
+    check(tail["active"] > 0, "no instance iterates in the full solve's "
+          "last chunk")
+    check(b1["B"] == 1 and b1["active"] == 1, "the drop-in chunk is not one "
+          "active instance")
+    qqp = to_ds_batch(stack_qp_dicts(generate_osc_batch(QUADRUPED, 256,
+                                                        seed=0)))
+    check(QUADRUPED.shape.lambda_c_start % 32 in (30, 31),
+          "the quadruped's cone segment does not straddle the row slots")
+    _, rec_q = recorded_full(engine, lambda: solve_batched_ds(
+        qqp, QUADRUPED.shape, FCCQPOptions(**dict(FULL_OPTS, max_iter=200))))
+    straddle = compare_full("quadruped_straddle", full_k, full_p,
+                            *rec_q.first, time_it=False)
+    records.append(dict(
+        name="admm_chunk_full_f64", route="cuda",
+        source="fcc_qp_tpu_torch/csrc/admm_chunk.cu",
+        replaces="fcc_qp_tpu/ops/pallas_admm.py:445",
+        launches=(launches_full["admm_chunk_full_f64"]
+                  + sum(v["admm_chunk_full_f64"]
+                        for v in launches_dropin.values())),
+        launches_full=launches_full["admm_chunk_full_f64"],
+        launches_dropin=sum(v["admm_chunk_full_f64"]
+                            for v in launches_dropin.values()),
+        max_abs_err=first["max_abs_err"], ms=first["ms"],
+        plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+        bound_by=first["bound_by"], library_ms=None,
+        ms_tail=tail["ms"], plain_ms_tail=tail["plain_ms"],
+        bound_ms_tail=tail["bound_ms"], bound_by_tail=tail["bound_by"],
+        active_tail=tail["active"], max_abs_err_tail=tail["max_abs_err"],
+        ms_b1=b1["ms"], plain_ms_b1=b1["plain_ms"],
+        bound_ms_b1=b1["bound_ms"], bound_by_b1=b1["bound_by"],
+        max_abs_err_b1=b1["max_abs_err"],
+        max_abs_err_straddle=straddle["max_abs_err"],
+    ))
+
+    # 9. result lines
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

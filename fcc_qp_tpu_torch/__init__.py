@@ -17,6 +17,7 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape  # noqa: E402
+from fcc_qp_tpu_torch.core.api import FCCQP  # noqa: E402
 from fcc_qp_tpu_torch.core.ds_engine import (  # noqa: E402
     OperatorCache,
     QPBatchDS,
@@ -26,15 +27,29 @@ from fcc_qp_tpu_torch.core.ds_engine import (  # noqa: E402
     replay_ds_streams,
     solve_batched_ds,
     to_ds_batch,
+    warm_start_f64_from_numpy,
     warm_start_from_numpy,
+)
+from fcc_qp_tpu_torch.core.solver import (  # noqa: E402
+    replay,
+    solve,
+    solve_batched,
 )
 from fcc_qp_tpu_torch.types import (  # noqa: E402
     FCCQPDetails,
     FCCQPSolution,
     FCCQPSolveStatus,
+    QPBatch,
+    WarmStart,
 )
 
 __all__ = [
+    "FCCQP",
+    "QPBatch",
+    "WarmStart",
+    "solve",
+    "solve_batched",
+    "replay",
     "FCCQPOptions",
     "ProblemShape",
     "FCCQPDetails",
@@ -48,5 +63,6 @@ __all__ = [
     "replay_ds_streams",
     "solve_batched_ds",
     "to_ds_batch",
+    "warm_start_f64_from_numpy",
     "warm_start_from_numpy",
 ]

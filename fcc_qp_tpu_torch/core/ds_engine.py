@@ -1,4 +1,5 @@
-"""Batched reduced-subspace ADMM engine — the port's main path.
+"""Batched ADMM engines: the reduced-subspace path (the port's main
+path) and the full-splitting engine with the reference's semantics.
 
 Port of the reduced path of `fcc_qp_tpu/core/ds_engine.py`. The JAX
 engine keeps its state in double-single f32 pairs because the TPU has no
@@ -20,6 +21,14 @@ One cold solve (`solve_batched_ds`) runs, in order:
      and the f64 endgame in chunks of `ops.pallas_admm.admm_chunk_f64`;
   6. the final primal, violations and status.
 
+The full-splitting engine (`_prepare_full`, `_iterate_full`) is the
+reference algorithm over all n variables at the package defaults
+(``splitting='full'``, no scaling, no polish): the f64-refined KKT
+operator, the exact (or operator) presolve, then the ADMM loop in chunks
+of the CUDA kernel `ops.pallas_admm.admm_chunk_full_f64`, with adaptive
+rho refactoring the whole batch between chunks. `solve_batched_ds` takes
+it whenever neither scaling, constrained splitting nor polish is on.
+
 The JAX engine's `lax.while_loop` over chunks is a Python loop here,
 with the convergence test between chunks (one host read per chunk).
 
@@ -31,9 +40,9 @@ polish starts from the carried seed and classification before any ADMM
 iteration. `replay_ds` is the serial single-stream replay.
 
 Not ported yet (raise `NotImplementedError`, see ROADMAP.md queue A):
-the full-splitting engine, the all-ds factor, exact presolve, adaptive
-rho, over-relaxation, and problems without constrained coordinates or
-without cones.
+over-relaxation (``alpha != 1``) on either engine, and adaptive rho on
+the reduced path. The kernels take at most 64 rows (n on the full
+engine, k on the reduced path): larger problems raise on the card.
 """
 
 from __future__ import annotations
@@ -51,18 +60,27 @@ from fcc_qp_tpu_torch.ops.ds_linalg import (
     kkt_inverse_blocks_refined_ds,
     kkt_inverse_f32_refresh,
     kkt_inverse_f32_seed,
+    kkt_solve_refined_ds,
     matvec_ds,
     refine_inverse_columns_ds,
     solve_from_seed_ds,
     transpose_ds,
 )
-from fcc_qp_tpu_torch.ops.pallas_admm import admm_chunk_f32, admm_chunk_f64
+from fcc_qp_tpu_torch.ops.pallas_admm import (
+    GATE_OFF,
+    GATE_SPLIT,
+    admm_chunk_f32,
+    admm_chunk_f64,
+    admm_chunk_full_f64,
+)
 from fcc_qp_tpu_torch.ops.polish import polish_reduced
+from fcc_qp_tpu_torch.ops.projections import sqrt_rn
 from fcc_qp_tpu_torch.ops.scaling import Scaling, apply_scaling, ruiz_scaling
 from fcc_qp_tpu_torch.types import (
     FCCQPDetails,
     FCCQPSolution,
     FCCQPSolveStatus,
+    WarmStart,
 )
 from fcc_qp_tpu_torch.utils.io import QP_KEYS
 from fcc_qp_tpu_torch.utils.timing import StageClock, stamp_solution_times, sync
@@ -168,6 +186,17 @@ def warm_start_from_numpy(x_hi, x_lo, mu_x_hi, mu_x_lo, mu_lc_hi, mu_lc_lo,
     )
 
 
+def warm_start_f64_from_numpy(x, mu_x, mu_lambda_c,
+                              device=None) -> WarmStart:
+    """Convert the JAX package's `WarmStart` of its f64 parity engine
+    (``x``, ``mu_x``, ``mu_lambda_c`` as numpy arrays, any leading batch
+    shape) into this package's `types.WarmStart` on ``device`` (default
+    CUDA)."""
+    dev = resolve_device(device)
+    t = lambda a: torch.from_numpy(np.array(a, np.float64, order="C")).to(dev)
+    return WarmStart(x=t(x), mu_x=t(mu_x), mu_lambda_c=t(mu_lambda_c))
+
+
 def operator_cache_from_numpy(kkt_seed, polish_seed, polish_cls, d, e, c,
                               device=None) -> OperatorCache:
     """Convert the JAX package's `OperatorCache` (given as numpy arrays)
@@ -209,14 +238,19 @@ def _scatter_last(full: torch.Tensor, idx, sub: torch.Tensor, sel):
     return _put_last(full, idx, torch.where(m, sub, full[..., idx]))
 
 
-def constrained_indices(qp: QPBatchDS, shape: ProblemShape) -> tuple:
+def constrained_indices(qp: QPBatchDS, shape: ProblemShape,
+                        full: bool = False) -> tuple:
     """Coordinate ordering of the reduced splitting: coordinates with a
     finite bound in ANY instance first, the cone segment last (so the
     reduced cone segment is the contiguous tail). Free coordinates carry
     zero dual and identity projections, so leaving them out keeps the
-    fixed point while shrinking the hot-loop operator to k x k."""
-    nc, ls = shape.nc, shape.lambda_c_start
+    fixed point while shrinking the hot-loop operator to k x k.
+    ``full=True`` keeps every coordinate (the reference's rho*I
+    splitting, permuted so the cone segment is the tail)."""
+    nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
     cone = tuple(range(ls, ls + nc))
+    if full:
+        return tuple(i for i in range(nv) if not ls <= i < ls + nc) + cone
     lb = qp.lb.cpu().numpy()
     ub = qp.ub.cpu().numpy()
     finite = np.isfinite(lb).any(axis=-1) | np.isfinite(ub).any(axis=-1)
@@ -252,23 +286,20 @@ def _status_checked(n_iter, max_iter: int, eq_viol, qp: QPBatchDS):
     )
 
 
-def _check_supported(opts: FCCQPOptions, shape: ProblemShape, k: int):
-    """Options and problem classes this slice of the port does not cover
-    raise, naming the ROADMAP.md queue-A item that adds them."""
+def _reduced(opts: FCCQPOptions) -> bool:
+    """Whether a solve takes the reduced path: Ruiz scaling, constrained
+    splitting or polish; otherwise the full-splitting engine."""
+    return opts.scaling or opts.splitting == "constrained" or opts.polish
+
+
+def _check_supported(opts: FCCQPOptions, reduced: bool):
+    """Options this port does not cover raise, naming the ROADMAP.md
+    queue-A item that adds them."""
     unsupported = []
-    if opts.adaptive_rho:
-        unsupported.append("adaptive_rho=True (item 11)")
     if opts.alpha != 1.0:
         unsupported.append("alpha != 1 (item 11)")
-    if opts.kkt_factor != "hybrid":
-        unsupported.append("kkt_factor='ds' (item 9)")
-    if opts.splitting != "constrained":
-        unsupported.append("splitting='full' (item 9)")
-    if opts.presolve != "operator":
-        unsupported.append("presolve='exact' (item 9)")
-    if k == 0 or shape.nc == 0:
-        unsupported.append("problems with no cone or no constrained "
-                           "coordinate (item 9)")
+    if reduced and opts.adaptive_rho:
+        unsupported.append("adaptive_rho=True on the reduced path (item 11)")
     if unsupported:
         raise NotImplementedError(
             "not ported yet (ROADMAP.md queue A): " + ", ".join(unsupported)
@@ -293,6 +324,9 @@ class _PrepReduced(NamedTuple):
     # (B,) the lazy f32-only operator did not contract (even after the
     # cold rescue): these instances get the exact build regardless
     seed_bad: Optional[torch.Tensor] = None
+    # (B,) equality-constrained instances (no cones, every bound
+    # infinite): their solution is the exact presolve
+    eq_c: Optional[torch.Tensor] = None
 
 
 def _scale_reduced(qp: QPBatchDS, shape: ProblemShape, opts: FCCQPOptions,
@@ -444,7 +478,9 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
                      scales: Optional[Scaling] = None):
     """Stage 1 (the "factorization" phase): equilibration, initial state
     (warm: unscaled full-space state -> scaled reduced coordinates;
-    cold: the operator presolve), and the reduced KKT operator.
+    cold: the exact or the operator presolve), and the reduced KKT
+    operator (hybrid, or the f64 Schur route with ``kkt_factor='ds'``).
+    Requires ``len(con_idx) > 0`` (`_solve_reduced_k0` takes k = 0).
     ``kkt_seed`` / ``scales``: carried from a previous replay step
     (`OperatorCache`)."""
     nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
@@ -475,8 +511,10 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
     else:
         rho0 = torch.full((B,), opts.rho, dtype=torch.float32, device=dev)
         mu0 = torch.zeros((k, B), dtype=torch.float64, device=dev)
+        if opts.presolve == "exact":
+            x_init = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq)
 
-    seed_bad = None
+    seed_bad, X32 = None, None
     if _lazy_exact(opts):
         # f32-only operator: the approach phase and the self-solving
         # polish never need more; the exact build is deferred to just
@@ -486,9 +524,13 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
         )
         Fcc, xc_const = Fcc.double(), xc_const.double()
         Fcolj, x_const = Fcolj.double(), x_const.double()
-    else:
+    elif opts.kkt_factor == "hybrid":
         Fcc, xc_const, Fcolj, x_const, X32 = _factor_reduced_hybrid(
             qps, rho0, ci, mask, opts.kkt_refine_steps + 1, kkt_seed=kkt_seed
+        )
+    else:
+        Fcc, xc_const, Fcolj, x_const = _factor_reduced(
+            qps, rho0, ci, mask, opts.kkt_refine_steps
         )
     if x_init is None:
         x_init = x_const
@@ -497,7 +539,44 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
         qps=qps, d=d, e=sc.e, c=sc.c, rho0=rho0, mu0=mu0,
         x_init=x_init, Fcc=Fcc, xc_const=xc_const, Fcolj=Fcolj,
         x_const=x_const, kkt_seed=X32, seed_bad=seed_bad,
+        eq_c=_equality_only(qp, nc),
     )
+
+
+def _equality_only(qp: QPBatchDS, nc: int) -> torch.Tensor:
+    """(B,) instances without cones whose bounds are all infinite: the
+    equality-constrained QP, solved by the presolve alone."""
+    if nc:
+        return torch.zeros((qp.batch,), dtype=torch.bool, device=qp.b.device)
+    return torch.isinf(qp.lb).all(dim=0) & torch.isinf(qp.ub).all(dim=0)
+
+
+def _solve_reduced_k0(qp: QPBatchDS, shape: ProblemShape,
+                      opts: FCCQPOptions):
+    """Pure-equality batch (no constrained coordinate at all): one refined
+    KKT solve on the equilibrated data is the whole solve."""
+    nv = shape.num_vars
+    B = qp.batch
+    dev = qp.b.device
+    qps, sc = _scale_reduced(qp, shape, opts)
+    x = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq) * sc.d.double()
+    eq_viol = _eq_residual_inf(qp, x)
+    zi = torch.zeros((B,), dtype=torch.int32, device=dev)
+    zb = torch.zeros((B,), dtype=torch.float64, device=dev)
+    details = FCCQPDetails(
+        n_iter=zi, admm_residual_bounds=zb, admm_residual_friction_cone=zb,
+        solve_time=zb, factorization_time=zb, bounds_viol=zb,
+        friction_cone_viol=zb,
+        solve_status=_status_checked(zi, opts.max_iter, eq_viol, qp),
+        equality_viol=eq_viol, n_iter_f32=zi, n_iter_ds=zi,
+        polish_attempts=zi, polish_accepted=zi,
+    )
+    new_warm = WarmStartDS(
+        x=x, mu_x=torch.zeros((nv, B), dtype=torch.float64, device=dev),
+        mu_lambda_c=torch.zeros((0, B), dtype=torch.float64, device=dev),
+        rho=torch.full((B,), opts.rho, dtype=torch.float32, device=dev),
+    )
+    return FCCQPSolution(details=details, z=x.T.contiguous()), new_warm
 
 
 @dataclasses.dataclass
@@ -790,6 +869,15 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     if pol is not None:
         x_s = torch.where(pol.accept[None, :], pol.x, x_s)
     x = x_s * d.double()
+    # equality-constrained instances take the exact presolve
+    eq_c = prep.eq_c
+    if nc == 0 and eq_c is not None and bool(eq_c.any()):
+        x_eq = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq)
+        x = torch.where(eq_c[None, :], x_eq * d.double(), x)
+    else:
+        eq_c = torch.zeros((B,), dtype=torch.bool, device=dev)
+    n_iter = torch.where(eq_c, 0, st.n_iter).to(torch.int32)
+    nz = lambda a: torch.where(eq_c, torch.zeros_like(a), a)
 
     # violations in unscaled units against the original data
     bdiff = x - torch.clamp(x, qp.lb, qp.ub)
@@ -802,7 +890,7 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
 
     eq_viol = _eq_residual_inf(qp, x)
     zeros_i = torch.zeros((B,), dtype=torch.int32, device=dev)
-    status = _status_checked(st.n_iter, max_iter, eq_viol, qp)
+    status = _status_checked(n_iter, max_iter, eq_viol, qp)
     if pol is not None:
         # a polish-accepted instance carries a self-validated solution
         status = torch.where(
@@ -811,19 +899,19 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
             status,
         )
     details = FCCQPDetails(
-        n_iter=st.n_iter,
-        admm_residual_bounds=st.x_res_norm,
-        admm_residual_friction_cone=st.lam_res_norm,
+        n_iter=n_iter,
+        admm_residual_bounds=nz(st.x_res_norm),
+        admm_residual_friction_cone=nz(st.lam_res_norm),
         solve_time=zeros_b,
         factorization_time=zeros_b,
         bounds_viol=bounds_viol,
         friction_cone_viol=fcone_viol,
         solve_status=status,
         equality_viol=eq_viol,
-        n_iter_f32=itv_f32,
-        n_iter_ds=st.itv - itv_f32,
-        polish_attempts=n_attempts,
-        polish_accepted=pol.accept.int() if pol is not None else zeros_i,
+        n_iter_f32=nz(itv_f32),
+        n_iter_ds=nz(st.itv - itv_f32),
+        polish_attempts=nz(n_attempts),
+        polish_accepted=nz(pol.accept.int() if pol is not None else zeros_i),
     )
 
     # warm state: full-space, UNSCALED
@@ -846,6 +934,187 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     return sol, new_warm
 
 
+# --------------------------------------------------------------------------
+# the full-splitting engine (the package defaults: the reference's rho*I
+# splitting over all n variables, no scaling, no polish)
+# --------------------------------------------------------------------------
+
+
+def _factor(qp: QPBatchDS, rho: torch.Tensor, refine_steps: int):
+    """The full-splitting operator ``(Fj, x_const)``: Fj (n, n, B) j-major
+    so that the primal update is ``x = x_const + rho F v``, from the f64
+    Schur-Cholesky route with refinement against the true KKT
+    (`ops.ds_linalg.kkt_inverse_blocks_refined_ds`). The computed F is not
+    exactly symmetric, so it is transposed to j-major explicitly."""
+    F, G = kkt_inverse_blocks_refined_ds(qp.Q, qp.A_eq, rho,
+                                         refine_steps=refine_steps)
+    Fj = transpose_ds(F).contiguous()
+    x_const = matvec_ds(transpose_ds(G), qp.b_eq) - matvec_ds(Fj, qp.b)
+    return Fj, x_const.contiguous()
+
+
+class _PrepFull(NamedTuple):
+    """Factorization-phase outputs of the full-splitting engine."""
+
+    mu_x0: torch.Tensor    # (n, B)
+    mu_lam0: torch.Tensor  # (nc, B)
+    rho0: torch.Tensor     # (B,) f32
+    x_init: torch.Tensor   # (n, B)
+    eq_c: torch.Tensor     # (B,) equality-constrained instances
+    Fj: torch.Tensor       # (n, n, B)
+    x_const: torch.Tensor  # (n, B)
+
+
+def _prepare_full(qp: QPBatchDS, warm: Optional[WarmStartDS], shape,
+                  opts: FCCQPOptions, warm_start: bool) -> _PrepFull:
+    """Stage 1 of the full engine (the "factorization" phase): the
+    warm-state setup, the exact presolve (or, with ``presolve='operator'``,
+    the operator's own constant term as the initial primal) and the KKT
+    operator."""
+    nv, nc = shape.num_vars, shape.nc
+    B = qp.batch
+    dev = qp.b.device
+    f64 = torch.float64
+    if warm_start:
+        if warm is None:
+            raise ValueError("warm_start=True needs a warm state")
+        mu_x0, mu_lam0 = warm.mu_x, warm.mu_lambda_c
+        rho0 = warm.rho.float()
+        x_init = warm.x
+    else:
+        mu_x0 = torch.zeros((nv, B), dtype=f64, device=dev)
+        mu_lam0 = torch.zeros((nc, B), dtype=f64, device=dev)
+        rho0 = torch.full((B,), opts.rho, dtype=torch.float32, device=dev)
+        x_init = None
+        if opts.presolve == "exact":
+            x_init = kkt_solve_refined_ds(qp.Q, qp.A_eq, -qp.b, qp.b_eq)
+    eq_c = _equality_only(qp, nc)
+    if warm_start and bool(eq_c.any()):
+        x_pre = kkt_solve_refined_ds(qp.Q, qp.A_eq, -qp.b, qp.b_eq)
+        x_init = torch.where(eq_c[None, :], x_pre, x_init)
+    Fj, x_const = _factor(qp, rho0, opts.kkt_refine_steps)
+    if x_init is None:
+        # operator presolve: the rho-regularized equality-QP solution
+        # (the v = 0 primal update)
+        x_init = x_const
+    return _PrepFull(mu_x0=mu_x0.contiguous(), mu_lam0=mu_lam0.contiguous(),
+                     rho0=rho0, x_init=x_init.contiguous(), eq_c=eq_c,
+                     Fj=Fj, x_const=x_const)
+
+
+def _iterate_full(qp: QPBatchDS, prep: _PrepFull, shape,
+                  opts: FCCQPOptions, clock: Optional[StageClock] = None):
+    """Stage 2 of the full engine: the ADMM loop in chunks of
+    `admm_chunk_full_f64` (of ``adaptive_rho_interval`` iterations when
+    adapting, else ``min(max_iter, 64)``), adaptive rho between chunks,
+    then the violations, status and warm state. One host read per chunk
+    (and one per adaptation)."""
+    nc, ls = shape.nc, shape.lambda_c_start
+    B = qp.batch
+    dev = qp.b.device
+    clock = clock or StageClock()
+    max_iter = opts.max_iter
+    # the JAX engine compares its residuals against f32 tolerances
+    eps_b = float(np.float32(opts.eps_bound))
+    eps_f = float(np.float32(opts.eps_fcone))
+    gate = GATE_SPLIT if opts.presolve == "operator" else GATE_OFF
+    K = opts.adaptive_rho_interval if opts.adaptive_rho else min(max_iter, 64)
+    n_chunks = -(-max_iter // K)
+
+    x0 = prep.x_init
+    zb = torch.zeros((B,), dtype=torch.float64, device=dev)
+    st = dict(
+        x=x0, x_bar=x0, lam_bar=x0[ls:ls + nc].contiguous(), mu_x=prep.mu_x0,
+        mu_lam=prep.mu_lam0, v=x0 - prep.mu_x0,
+        done=torch.zeros((B,), dtype=torch.bool, device=dev),
+        n_iter=torch.full((B,), max_iter, dtype=torch.int32, device=dev),
+        itv=None, xrn=zb, lrn=zb, prim=zb, dual=zb,
+    )
+    keys = ("x", "x_bar", "lam_bar", "mu_x", "mu_lam", "v", "done",
+            "n_iter", "itv", "xrn", "lrn", "prim", "dual")
+    rho, Fj, x_const = prep.rho0, prep.Fj, prep.x_const
+    lb, ub = qp.lb.contiguous(), qp.ub.contiguous()
+    mu_f = qp.friction_coeffs.contiguous()
+    it, next_adapt, n_refactor = 0, K, 0
+    while it < n_chunks * K and not bool(st["done"].all()):
+        # per-instance counters equal the global one on this single-phase
+        # path (a frozen instance is done)
+        st["itv"] = torch.full((B,), it, dtype=torch.int32, device=dev)
+        out = admm_chunk_full_f64(
+            Fj, x_const, lb, ub, mu_f, rho.double(), eps_b, eps_f,
+            *(st[k] for k in keys), ls=ls, K=K, max_iter=max_iter,
+            gate=gate,
+        )
+        st = dict(zip(keys, out))
+        it += K
+        if opts.adaptive_rho:
+            due = it >= next_adapt and (
+                n_refactor < opts.adaptive_rho_max_adaptations)
+            if due:
+                rho, Fj, x_const, changed = _adapt_rho(
+                    qp, st, rho, Fj, x_const, opts)
+                n_refactor += int(changed)
+                next_adapt *= 2
+    clock.mark("iterate")
+    clock.count("n_refactor", n_refactor)
+
+    eq_c = prep.eq_c
+    x = torch.where(eq_c[None, :], prep.x_init, st["x"])
+    n_iter = torch.where(eq_c, 0, st["n_iter"]).to(torch.int32)
+    nz = lambda a: torch.where(eq_c, torch.zeros_like(a), a)
+    bdiff = x - torch.clamp(x, qp.lb, qp.ub)
+    bounds_viol = torch.sqrt((bdiff * bdiff).sum(dim=0))
+    f3 = x[ls:ls + nc].reshape(nc // 3, 3, B)
+    nxy = torch.sqrt(f3[:, 0] ** 2 + f3[:, 1] ** 2)
+    fcone_viol = torch.clamp_min(
+        nxy - qp.friction_coeffs * f3[:, 2], 0.0).sum(dim=0)
+    eq_viol = _eq_residual_inf(qp, x)
+    zi = torch.zeros((B,), dtype=torch.int32, device=dev)
+    details = FCCQPDetails(
+        n_iter=n_iter, admm_residual_bounds=nz(st["xrn"]),
+        admm_residual_friction_cone=nz(st["lrn"]), solve_time=zb,
+        factorization_time=zb, bounds_viol=bounds_viol,
+        friction_cone_viol=fcone_viol,
+        solve_status=_status_checked(n_iter, max_iter, eq_viol, qp),
+        equality_viol=eq_viol, n_iter_f32=zi,
+        # the full engine iterates in f64 only
+        n_iter_ds=n_iter, polish_attempts=zi, polish_accepted=zi,
+    )
+    new_warm = WarmStartDS(
+        x=x, mu_x=torch.where(eq_c[None, :], prep.mu_x0, st["mu_x"]),
+        mu_lambda_c=st["mu_lam"], rho=rho,
+    )
+    clock.mark("finalize")
+    return FCCQPSolution(details=details, z=x.T.contiguous()), new_warm
+
+
+def _adapt_rho(qp: QPBatchDS, st: dict, rho, Fj, x_const,
+               opts: FCCQPOptions):
+    """One adaptive-rho step of the full engine: where the primal and
+    dual residual norms are out of balance by more than the tolerance,
+    ``rho <- clip(rho * sqrt(prim / dual))`` and the scaled duals take
+    ``rho_old / rho_new``; the batch's operator is rebuilt when any rho
+    changed (an instance whose rho did not change gets the identical
+    operator back). Computed in f32 from the f32-rounded norms, as the JAX
+    engine does. Returns ``(rho, Fj, x_const, changed)``."""
+    tol = opts.adaptive_rho_tolerance
+    prim, dual = st["prim"].float(), st["dual"].float()
+    safe = (prim > 1e-30) & (dual > 1e-30) & ~st["done"]
+    ratio = sqrt_rn(prim / torch.clamp_min(dual, 1e-30))
+    trigger = safe & ((ratio > tol) | (ratio < 1.0 / tol))
+    new_rho = torch.where(
+        trigger, torch.clamp(rho * ratio, opts.rho_min, opts.rho_max), rho)
+    changed_mask = new_rho != rho
+    if not bool(changed_mask.any()):
+        return rho, Fj, x_const, False
+    scale = torch.where(changed_mask, rho / new_rho,
+                        torch.ones_like(rho)).double()
+    st["mu_x"] = st["mu_x"] * scale[None, :]
+    st["mu_lam"] = st["mu_lam"] * scale[None, :]
+    Fj, x_const = _factor(qp, new_rho, opts.kkt_refine_steps)
+    return new_rho, Fj, x_const, True
+
+
 def solve_batched_ds(
     qp: QPBatchDS,
     shape: ProblemShape,
@@ -856,38 +1125,61 @@ def solve_batched_ds(
     stage_times: Optional[dict] = None,
     con_idx: Optional[tuple] = None,
 ):
-    """Batched cold (or warm-started) solve on the reduced path.
+    """Batched cold (or warm-started) solve.
+
+    With Ruiz scaling, constrained splitting, polish or an explicit
+    ``con_idx`` the solve takes the reduced path (equilibrated, the
+    splitting over the constrained coordinates, or over all of them with
+    ``splitting='full'``; a batch without any constrained coordinate is
+    one refined KKT solve); otherwise it takes the full-splitting engine
+    with the reference's semantics (the package defaults). Over-relaxation
+    and adaptive rho on the reduced path raise `NotImplementedError`.
 
     Runs on ``device`` (default CUDA; raises when there is no card),
-    moving ``qp`` / ``warm`` there if they live elsewhere. Requires
-    ``splitting='constrained'`` (which forces Ruiz scaling),
-    ``presolve='operator'`` and the hybrid factor; other options raise
-    `NotImplementedError`. ``details.solve_time`` /
-    ``factorization_time`` hold wall-clock phase spans (each ending in a
-    device synchronize). ``stage_times``: a dict that receives the
-    synchronized wall seconds of each stage (scaling, operator,
-    approach, polish, exact_build, endgame, finalize); it adds a device
-    synchronize at every stage boundary. ``con_idx``: the constrained
-    coordinates (`constrained_indices`), computed from ``qp`` when None;
-    the replays pass those of their whole log.
+    moving ``qp`` / ``warm`` there if they live elsewhere.
+    ``details.solve_time`` / ``factorization_time`` hold wall-clock phase
+    spans (each ending in a device synchronize). ``stage_times``: a dict
+    that receives the synchronized wall seconds of each stage (reduced:
+    scaling, operator, approach, polish, exact_build, endgame, finalize;
+    full: operator, iterate, finalize, and the adaptive-rho refactor
+    count ``n_refactor``); it adds a device synchronize at every stage
+    boundary. ``con_idx``: the constrained coordinates
+    (`constrained_indices`), computed from ``qp`` when None; the replays
+    pass those of their whole log.
 
     Returns ``(FCCQPSolution, WarmStartDS)``.
     """
     dev = resolve_device(device)
-    if con_idx is None:
-        con_idx = constrained_indices(qp, shape)
-    _check_supported(opts, shape, len(con_idx))
+    reduced = _reduced(opts) or con_idx is not None
+    _check_supported(opts, reduced)
     qp = QPBatchDS(*(a.to(dev) for a in qp))
     if warm is not None:
         warm = WarmStartDS(*(a.to(dev) for a in warm))
+    if reduced and con_idx is None:
+        con_idx = constrained_indices(qp, shape,
+                                      full=opts.splitting == "full")
     t0 = time.perf_counter()
     clock = StageClock(stage_times, dev)
-    prep = _prepare_reduced(
-        qp, warm, shape, opts, warm_start, con_idx, clock=clock
-    )
+    if reduced and len(con_idx) == 0:
+        # pure equality: the whole solve is one refined KKT solve
+        sol, ws = _solve_reduced_k0(qp, shape, opts)
+        sync(dev)
+        t = time.perf_counter() - t0
+        return stamp_solution_times(sol, t, t), ws
+    if reduced:
+        prep = _prepare_reduced(
+            qp, warm, shape, opts, warm_start, con_idx, clock=clock
+        )
+    else:
+        prep = _prepare_full(qp, warm, shape, opts, warm_start)
+        clock.mark("operator")
     sync(dev)
     t1 = time.perf_counter()
-    sol, ws = _iterate_reduced(qp, prep, shape, opts, con_idx, clock=clock)
+    if reduced:
+        sol, ws = _iterate_reduced(qp, prep, shape, opts, con_idx,
+                                   clock=clock)
+    else:
+        sol, ws = _iterate_full(qp, prep, shape, opts, clock=clock)
     sync(dev)
     t2 = time.perf_counter()
     return stamp_solution_times(sol, t2 - t0, t1 - t0), ws
@@ -903,6 +1195,9 @@ def _solve_ds_reduced(qp, warm, shape, opts, warm_start, con_idx,
     polish classification; ``with_cache`` returns
     ``(sol, warm, OperatorCache)``."""
     cache = cache if cache is not None else OperatorCache()
+    if len(con_idx) == 0:
+        out = _solve_reduced_k0(qp, shape, opts)
+        return out + (OperatorCache(),) if with_cache else out
     prep = _prepare_reduced(
         qp, warm, shape, opts, warm_start, con_idx, clock=clock,
         kkt_seed=cache.kkt_seed, scales=cache.scales,
@@ -970,8 +1265,10 @@ def replay_ds_streams(
     if T % S != 0:
         raise ValueError(f"T={T} must be a multiple of n_streams={S}")
     steps = T // S
-    con_idx = constrained_indices(qps, shape)
-    _check_supported(opts, shape, len(con_idx))
+    reduced = _reduced(opts)
+    _check_supported(opts, reduced)
+    con_idx = (constrained_indices(qps, shape, full=opts.splitting == "full")
+               if reduced else None)
 
     # step-major copy of the log: element [t, ..., s] is global step
     # s*steps + t, and each step is one contiguous (..., S) view
@@ -989,21 +1286,26 @@ def replay_ds_streams(
             return None
         return StageClock(stage_times.setdefault(key, {}), dev)
 
+    def solve_step(t, ws, cache, clock):
+        if reduced:
+            return _solve_ds_reduced(
+                step(t), ws, shape, opts, t > 0, con_idx, cache=cache,
+                with_cache=True, clock=clock,
+            )
+        # the full engine carries no operator cache
+        sol, ws = solve_batched_ds(step(t), shape, opts, warm=ws,
+                                   warm_start=t > 0, device=dev)
+        return sol, ws, None
+
     # each step is a named range for `torch.profiler` (exp_torch_profile.py)
     sync(dev)
     t0 = time.perf_counter()
     with torch.profiler.record_function("replay_step0"):
-        sol, ws, cache = _solve_ds_reduced(
-            step(0), None, shape, opts, False, con_idx, with_cache=True,
-            clock=stage("step0"),
-        )
+        sol, ws, cache = solve_step(0, None, None, stage("step0"))
     sols = [sol]
     for t in range(1, steps):
         with torch.profiler.record_function("replay_warm_step"):
-            sol, ws, cache = _solve_ds_reduced(
-                step(t), ws, shape, opts, True, con_idx, cache=cache,
-                with_cache=True, clock=stage("warm"),
-            )
+            sol, ws, cache = solve_step(t, ws, cache, stage("warm"))
         sols.append(sol)
     sync(dev)
     t_total = time.perf_counter() - t0
@@ -1022,7 +1324,11 @@ def _factor_probe(qp0: QPBatchDS, shape, opts, con_idx) -> float:
     dev = qp0.b.device
     key = (shape, opts, con_idx, qp0.batch, str(dev))
     if key not in _FACTOR_PROBE_CACHE:
-        run = lambda: _prepare_reduced(qp0, None, shape, opts, False, con_idx)
+        if con_idx:
+            run = lambda: _prepare_reduced(qp0, None, shape, opts, False,
+                                           con_idx)
+        else:
+            run = lambda: _prepare_full(qp0, None, shape, opts, False)
         run()
         sync(dev)
         t0 = time.perf_counter()
@@ -1048,7 +1354,8 @@ def replay_ds(
     over a batch of T (the JAX package returns them as (T, 1, ...)).
     """
     dev = resolve_device(device)
-    con_idx = constrained_indices(qps, shape)
+    con_idx = (constrained_indices(qps, shape, full=opts.splitting == "full")
+               if _reduced(opts) else None)
     sols, ws = [], None
     for t in range(qps.batch):
         qp_t = QPBatchDS(*(a[..., t:t + 1].contiguous() for a in qps))

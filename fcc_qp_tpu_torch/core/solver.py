@@ -1,0 +1,238 @@
+"""The f64 parity engine: presolve and ADMM with the reference's
+semantics (port of `fcc_qp_tpu/core/solver.py`).
+
+Reference control flow, per instance: the duals reset to zero unless the
+solve is warm-started; the presolve (the equality-constrained QP solved
+exactly) gives the initial primal unless the solve is warm-started; a
+problem without cones and with every bound infinite is solved by the
+presolve alone (``n_iter = 0``); otherwise the ADMM loop runs until the
+residuals fall below the tolerances or ``max_iter`` iterations are spent.
+
+The factorization builds the explicit KKT inverse blocks
+(`ops.kkt.admm_operator`); the loop runs in chunks of the CUDA kernel
+`ops.pallas_admm.admm_chunk_full_f64` (the full layout, unit weights,
+the increment gate over all rows with operator presolve), one launch per
+chunk of up to 64 iterations and one host read per chunk to stop when
+every instance has converged or run out of iterations. Instances that
+converge freeze where they stopped, so a batch gives each instance the
+result of its own serial solve. The JAX package runs the same loop as a
+vmapped `lax.while_loop`.
+
+Data is batch-LEADING `types.QPBatch` in f64 (`solve` takes one instance,
+`solve_batched` a batch); the loop's state is batch-last, as the kernel
+reads it.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
+from fcc_qp_tpu_torch.core.ds_engine import resolve_device
+from fcc_qp_tpu_torch.ops.kkt import admm_operator, kkt_solve
+from fcc_qp_tpu_torch.ops.pallas_admm import (
+    GATE_ALL,
+    GATE_OFF,
+    admm_chunk_full_f64,
+)
+from fcc_qp_tpu_torch.ops.projections import (
+    calc_bound_violation,
+    calc_friction_cone_violation,
+)
+from fcc_qp_tpu_torch.types import (
+    FCCQPDetails,
+    FCCQPSolution,
+    FCCQPSolveStatus,
+    QPBatch,
+    WarmStart,
+)
+from fcc_qp_tpu_torch.utils.timing import stamp_solution_times, sync
+
+
+def _presolve(qp: QPBatch) -> torch.Tensor:
+    """The equality-constrained QP's solution, (B, n): ``[[Q, A'],[A, 0]]
+    s = [-b; b_eq]``."""
+    return kkt_solve(qp.Q, qp.A_eq, 0.0, -qp.b, qp.b_eq)
+
+
+def _admm(qp: QPBatch, x0, mu_x0, mu_lam0, skip, shape: ProblemShape,
+          opts: FCCQPOptions, operator):
+    """The ADMM loop over a batch (B-leading in, B-leading out), in chunks
+    of the full-layout kernel. ``skip`` (B,) marks instances that do not
+    iterate. Returns ``(x, mu_x, mu_lam, n_iter, xrn, lrn)``."""
+    nc, ls = shape.nc, shape.lambda_c_start
+    F, x_const = operator
+    B = x0.shape[0]
+    dev = x0.device
+    f64 = torch.float64
+    last = lambda a: a.T.contiguous()
+    zb = torch.zeros((B,), dtype=f64, device=dev)
+    x = last(x0)
+    mu_x, mu_lam = last(mu_x0), last(mu_lam0)
+    st = dict(
+        x=x, x_bar=x, lam_bar=x[ls:ls + nc].contiguous(), mu_x=mu_x,
+        mu_lam=mu_lam, v=x - mu_x, done=skip.clone(),
+        n_iter=torch.full((B,), opts.max_iter, dtype=torch.int32,
+                          device=dev),
+        itv=torch.zeros((B,), dtype=torch.int32, device=dev),
+        xrn=zb, lrn=zb, prim=zb, dual=zb,
+    )
+    Fj = F.permute(2, 1, 0).contiguous()          # [j, i, b] = F[b, i, j]
+    const = (Fj, last(x_const), last(qp.lb), last(qp.ub),
+             last(qp.friction_coeffs),
+             torch.full((B,), float(opts.rho), dtype=f64, device=dev),
+             opts.eps_bound, opts.eps_fcone)
+    gate = GATE_ALL if opts.presolve == "operator" else GATE_OFF
+    K = min(opts.max_iter, 64)
+    keys = ("x", "x_bar", "lam_bar", "mu_x", "mu_lam", "v", "done",
+            "n_iter", "itv", "xrn", "lrn", "prim", "dual")
+    while not bool((st["done"] | (st["itv"] >= opts.max_iter)).all()):
+        out = admm_chunk_full_f64(*const, *(st[k] for k in keys), ls=ls, K=K,
+                                  max_iter=opts.max_iter, gate=gate)
+        st = dict(zip(keys, out))
+    return (st["x"].T, st["mu_x"].T, st["mu_lam"].T, st["n_iter"],
+            st["xrn"], st["lrn"])
+
+
+def _details(x, qp: QPBatch, shape: ProblemShape, n_iter, xrn, lrn,
+             max_iter: int) -> FCCQPDetails:
+    nc, ls = shape.nc, shape.lambda_c_start
+    if qp.A_eq.shape[-2]:
+        eq_viol = ((qp.A_eq @ x[..., None])[..., 0] - qp.b_eq).abs().amax(-1)
+    else:
+        eq_viol = torch.zeros_like(xrn)
+    status = torch.where(
+        n_iter == max_iter, int(FCCQPSolveStatus.kMaxIterations),
+        int(FCCQPSolveStatus.kSuccess),
+    ).to(torch.int32)
+    zeros_i = torch.zeros_like(n_iter)
+    zb = torch.zeros_like(xrn)
+    return FCCQPDetails(
+        n_iter=n_iter, admm_residual_bounds=xrn,
+        admm_residual_friction_cone=lrn, solve_time=zb,
+        factorization_time=zb,
+        bounds_viol=calc_bound_violation(x, qp.lb, qp.ub),
+        friction_cone_viol=calc_friction_cone_violation(
+            x[..., ls:ls + nc], qp.friction_coeffs),
+        solve_status=status, equality_viol=eq_viol, n_iter_f32=zeros_i,
+        n_iter_ds=zeros_i, polish_attempts=zeros_i, polish_accepted=zeros_i,
+    )
+
+
+def _solve_core(qp: QPBatch, shape: ProblemShape, opts: FCCQPOptions,
+                warm: Optional[WarmStart], warm_start: bool, operator=None):
+    """A solve of the batch ``qp`` (B-leading, f64, on its device)."""
+    B = qp.b.shape[0]
+    dev = qp.b.device
+    nc = shape.nc
+    if warm is None:
+        warm = WarmStart.zeros(shape, (B,), device=dev)
+    if warm_start:
+        mu_x0, mu_lam0 = warm.mu_x, warm.mu_lambda_c
+    else:
+        mu_x0 = torch.zeros_like(warm.mu_x)
+        mu_lam0 = torch.zeros_like(warm.mu_lambda_c)
+    # the equality-constrained fast path needs nc == 0 and every bound
+    # infinite (then the presolve is the solution)
+    if nc == 0:
+        eq_c = (torch.isinf(qp.lb).all(dim=-1)
+                & torch.isinf(qp.ub).all(dim=-1))
+    else:
+        eq_c = torch.zeros((B,), dtype=torch.bool, device=dev)
+    if warm_start:
+        x_init = warm.x
+        if bool(eq_c.any()):
+            x_init = torch.where(eq_c[:, None], _presolve(qp), warm.x)
+    else:
+        x_init = _presolve(qp)
+    if operator is None:
+        operator = admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, opts.rho)
+    x, mu_x, mu_lam, n_iter, xrn, lrn = _admm(
+        qp, x_init, mu_x0, mu_lam0, eq_c, shape, opts, operator)
+    # skipped instances: the presolve, their incoming duals, no iteration
+    n_iter = torch.where(eq_c, 0, n_iter).to(torch.int32)
+    details = _details(x, qp, shape, n_iter, xrn, lrn, opts.max_iter)
+    return (FCCQPSolution(details=details, z=x),
+            WarmStart(x=x, mu_x=mu_x, mu_lambda_c=mu_lam))
+
+
+def solve(qp: QPBatch, shape: ProblemShape,
+          opts: FCCQPOptions = FCCQPOptions(),
+          warm: Optional[WarmStart] = None, warm_start: bool = False,
+          device=None):
+    """Solve ONE QP instance (unbatched fields). Control flow of the
+    reference's Solve: duals reset unless ``warm_start``; the presolve
+    runs unless ``warm_start`` (or for an equality-constrained problem);
+    ADMM runs unless the problem is purely equality-constrained.
+
+    Runs on ``device`` (default CUDA; raises when there is no card).
+    Returns ``(FCCQPSolution, WarmStart)`` of the single instance."""
+    dev = resolve_device(device)
+    qp1 = QPBatch(*(a[None] for a in
+                    qp.to(dev, torch.float64).__dict__.values()))
+    w1 = None
+    if warm is not None:
+        w = warm.to(dev, torch.float64)
+        w1 = WarmStart(w.x[None], w.mu_x[None], w.mu_lambda_c[None])
+    sol, ws = _solve_core(qp1, shape, opts, w1, warm_start)
+    det = FCCQPDetails(**{k: v[0] for k, v in sol.details.__dict__.items()})
+    return (FCCQPSolution(details=det, z=sol.z[0]),
+            WarmStart(x=ws.x[0], mu_x=ws.mu_x[0],
+                      mu_lambda_c=ws.mu_lambda_c[0]))
+
+
+def solve_batched(qp: QPBatch, shape: ProblemShape,
+                  opts: FCCQPOptions = FCCQPOptions(),
+                  warm: Optional[WarmStart] = None, warm_start: bool = False,
+                  device=None):
+    """Solve a batch of independent QPs (leading batch axis B): the
+    replacement for looping the reference's Solve. Each instance gets the
+    result of its own serial solve.
+
+    Runs on ``device`` (default CUDA; raises when there is no card). The
+    operator build and the solve are timed apart: ``details.solve_time``
+    is the wall of the whole call and ``details.factorization_time`` the
+    operator build within it, each span ending in a device synchronize.
+    Returns ``(FCCQPSolution, WarmStart)``, batch-leading."""
+    dev = resolve_device(device)
+    qp = qp.to(dev, torch.float64)
+    if warm is not None:
+        warm = warm.to(dev, torch.float64)
+    sync(dev)
+    t0 = time.perf_counter()
+    operator = admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, opts.rho)
+    sync(dev)
+    t1 = time.perf_counter()
+    sol, ws = _solve_core(qp, shape, opts, warm, warm_start, operator)
+    sync(dev)
+    t2 = time.perf_counter()
+    return stamp_solution_times(sol, t2 - t0, t1 - t0), ws
+
+
+def replay(qps: QPBatch, shape: ProblemShape,
+           opts: FCCQPOptions = FCCQPOptions(), device=None):
+    """Sequential warm-started replay of a logged QP sequence (leading
+    time axis T; a batch axis may follow it): step 0 cold, every later
+    step warm-started from the one before, as the reference loop does
+    with ``set_warm_start(i > 0)``. Returns ``(solutions stacked over T,
+    final WarmStart)``."""
+    dev = resolve_device(device)
+    qps = qps.to(dev, torch.float64)
+    fields = list(qps.__dict__.values())
+    single = qps.b.dim() == 2
+    sols, ws = [], None
+    for t in range(qps.b.shape[0]):
+        qp_t = QPBatch(*(a[t][None] if single else a[t] for a in fields))
+        sol, ws = _solve_core(qp_t, shape, opts, ws, t > 0)
+        sols.append(sol)
+    pick = (lambda a: a[0]) if single else (lambda a: a)
+    det = FCCQPDetails(**{
+        k: torch.stack([pick(getattr(s.details, k)) for s in sols])
+        for k in sols[0].details.__dict__
+    })
+    z = torch.stack([pick(s.z) for s in sols])
+    final = WarmStart(*(pick(a) for a in (ws.x, ws.mu_x, ws.mu_lambda_c)))
+    return FCCQPSolution(details=det, z=z), final

@@ -1,0 +1,177 @@
+"""KKT assembly and Schur-complement factorization of the f64 parity
+engine (port of `fcc_qp_tpu/ops/kkt.py`).
+
+The reference factors the dense symmetric-indefinite KKT matrix
+
+    M = [[Q (+ rho*I),  A_eq^T],
+         [A_eq,         0     ]]
+
+once per solve and back-substitutes every ADMM iteration. The parity
+engine instead forms the explicit inverse blocks by the Schur complement
+(A_eq of full row rank):
+
+    H = Q + rho*I,  S = A H^{-1} A^T,
+    M^{-1} = [[F, G], [G^T, -S^{-1}]],
+    W = H^{-1} A^T,  G = W S^{-1},  F = H^{-1} - W S^{-1} W^T
+
+so that every ADMM primal update is one mat-vec ``x = x_const + rho F v``.
+Where the reference falls back from LDLT to a rank-revealing
+factorization, a Cholesky factor that does not exist is retried with
+escalating diagonal shifts per instance, and a shifted factor is healed
+by refinement against the true KKT.
+
+All functions are batch-LEADING f64 (``(B, n, n)``, ``(B, n)``): the JAX
+package writes them for one instance and vmaps them. `torch.linalg.
+cholesky_ex` and `torch.cholesky_solve` are library factorizations, as
+the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def _rho_col(rho, like: torch.Tensor) -> torch.Tensor:
+    """rho as a (B, 1, 1) tensor (a scalar or (B,) per instance)."""
+    r = torch.as_tensor(rho, dtype=like.dtype, device=like.device)
+    return r.reshape(-1, 1, 1) if r.dim() else r
+
+
+def assemble_kkt(Q: torch.Tensor, A_eq: torch.Tensor, rho) -> torch.Tensor:
+    """``[[Q + rho*I, A'],[A, 0]]``, batch-leading (B, n+m, n+m)."""
+    B, n, _ = Q.shape
+    m = A_eq.shape[-2]
+    M = Q.new_zeros((B, n + m, n + m))
+    M[:, :n, :n] = Q + _rho_col(rho, Q) * _eye(n, Q)
+    M[:, :n, n:] = A_eq.transpose(-1, -2)
+    M[:, n:, :n] = A_eq
+    return M
+
+
+def _chol_or_regularized(M: torch.Tensor, return_shifted: bool = False):
+    """Cholesky factor of each M, escalating Tikhonov shifts
+    ``eps * {0, 1e2, 1e5, 1e8} * max(max|M|, 1)`` until it exists.
+
+    A factor counts only if its squared pivots exceed ``1e3 * eps *
+    scale``: an exactly singular M (the Schur complement of a
+    rank-deficient A_eq) has roundoff pivots of either sign, and a
+    positive one would pass as a finite factor of infinite condition.
+    Instances that fail at every shift get zeros. With
+    ``return_shifted`` also returns the per-instance flag that a shift
+    was taken (or all failed)."""
+    B, n, _ = M.shape
+    eps = torch.finfo(M.dtype).eps
+    scale = torch.clamp_min(M.abs().amax(dim=(-1, -2)), 1.0)
+    floor = 1e3 * eps * scale
+    eye = _eye(n, M)
+
+    def factor(shift):
+        L, info = torch.linalg.cholesky_ex(M + shift[:, None, None] * eye)
+        dg = torch.diagonal(L, dim1=-2, dim2=-1)
+        ok = ((info == 0) & torch.isfinite(L).all(dim=(-1, -2))
+              & (dg * dg > floor[:, None]).all(dim=-1))
+        return L, ok
+
+    L = torch.zeros_like(M)
+    ok = torch.zeros((B,), dtype=torch.bool, device=M.device)
+    attempts = torch.zeros((B,), dtype=torch.int32, device=M.device)
+    for mult in (0.0, 1e2, 1e5, 1e8):
+        need = ~ok
+        if not bool(need.any()):
+            break
+        Lk, okk = factor(scale * eps * mult)
+        L = torch.where(need[:, None, None], Lk, L)
+        ok = ok | (need & okk)
+        attempts = attempts + need.int()
+    L = torch.where(ok[:, None, None], L, torch.zeros_like(L))
+    if return_shifted:
+        # one attempt means the unshifted factor succeeded
+        return L, (attempts > 1) | ~ok
+    return L
+
+
+def _cho_solve(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    return torch.cholesky_solve(R, L, upper=False)
+
+
+def kkt_factor_blocks(Q: torch.Tensor, A_eq: torch.Tensor, rho):
+    """Schur-complement factorization of the KKT matrix: the explicit
+    inverse blocks ``F = M^{-1}[:n, :n]`` (B, n, n) and ``G =
+    M^{-1}[:n, n:]`` (B, n, m). Instances whose factors took a shift are
+    refined by four fixed-preconditioner Richardson steps against the
+    true KKT (the shift's null-space error stays in the dual-dual block,
+    which F and G never read)."""
+    B, n, _ = Q.shape
+    m = A_eq.shape[-2]
+    H = Q + _rho_col(rho, Q) * _eye(n, Q)
+    L_H, sh_H = _chol_or_regularized(H, return_shifted=True)
+    Hinv = _cho_solve(L_H, _eye(n, Q).expand(B, n, n))
+    At = A_eq.transpose(-1, -2)
+    W = _cho_solve(L_H, At)
+    S = A_eq @ W
+    L_S, sh_S = _chol_or_regularized(S, return_shifted=True)
+    T = _cho_solve(L_S, W.transpose(-1, -2))          # (B, m, n)
+    F = Hinv - W @ T
+    G = T.transpose(-1, -2)
+    sh = sh_H | sh_S
+    if bool(sh.any()):
+        Sinv = _cho_solve(L_S, _eye(m, Q).expand(B, m, m))
+        X0 = torch.cat([torch.cat([F, G], dim=-1),
+                        torch.cat([T, -Sinv], dim=-1)], dim=-2)
+        M = assemble_kkt(Q, A_eq, rho)
+        eyeN = _eye(n + m, Q)
+        X = X0
+        for _ in range(4):
+            X = X + X0 @ (eyeN - M @ X)
+        sel = sh[:, None, None]
+        F = torch.where(sel, X[:, :n, :n], F)
+        G = torch.where(sel, X[:, :n, n:], G)
+    return F, G
+
+
+def kkt_solve(Q: torch.Tensor, A_eq: torch.Tensor, rho, r: torch.Tensor,
+              s: torch.Tensor) -> torch.Tensor:
+    """Solve ``[[Q + rho*I, A'],[A, 0]] [x; y] = [r; s]`` for x (B, n):
+    the single right-hand-side Schur solve of the presolve. Instances
+    whose factors took a shift get four vector refinement steps against
+    the true KKT."""
+    n = Q.shape[-1]
+    H = Q + _rho_col(rho, Q) * _eye(n, Q)
+    L_H, sh_H = _chol_or_regularized(H, return_shifted=True)
+    mv = lambda M_, v_: (M_ @ v_[..., None])[..., 0]
+    At = A_eq.transpose(-1, -2)
+    W = _cho_solve(L_H, At)
+    S = A_eq @ W
+    L_S, sh_S = _chol_or_regularized(S, return_shifted=True)
+
+    def solve_once(rv, sv):
+        u = _cho_solve(L_H, rv[..., None])[..., 0]
+        y = _cho_solve(L_S, (mv(A_eq, u) - sv)[..., None])[..., 0]
+        return u - mv(W, y), y
+
+    x, y = solve_once(r, s)
+    sh = sh_H | sh_S
+    if bool(sh.any()):
+        xv, yv = x, y
+        for _ in range(4):
+            rr = r - (mv(H, xv) + mv(At, yv))
+            rs = s - mv(A_eq, xv)
+            dx, dy = solve_once(rr, rs)
+            xv, yv = xv + dx, yv + dy
+        x = torch.where(sh[:, None], xv, x)
+    return x
+
+
+def admm_operator(Q: torch.Tensor, b: torch.Tensor, A_eq: torch.Tensor,
+                  b_eq: torch.Tensor, rho):
+    """The per-solve ADMM primal-update operator ``(F, x_const)`` (B, n,
+    n) / (B, n): every iteration's primal update is ``x = x_const + rho F
+    v`` with v = slack - dual, because the KKT right-hand side is ``[-b +
+    rho v; b_eq]`` and only its first block changes."""
+    F, G = kkt_factor_blocks(Q, A_eq, rho)
+    mv = lambda M_, v_: (M_ @ v_[..., None])[..., 0]
+    return F, -mv(F, b) + mv(G, b_eq)

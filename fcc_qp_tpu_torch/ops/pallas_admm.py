@@ -7,22 +7,29 @@ counterpart is easy to find; nothing here is Pallas):
   TPU, native f64 here), the endgame chunk, with the optional
   primal-increment gate ``inc_gate``;
 * `admm_chunk_f32` replaces `admm_chunk_pallas32`, the plain-f32
-  approach-phase chunk.
+  approach-phase chunk;
+* `admm_chunk_full_f64` is `admm_chunk_pallas` in the general layout the
+  full-splitting engine and the f64 parity engine call it in: all n
+  variables, the cone segment at ``[ls, ls + nc)`` wherever it sits, the
+  box duals (n rows) and cone duals (nc rows) kept apart, unit weights.
 
-Both are hand-written CUDA C++ for sm_90a in `csrc/admm_chunk.cu`, built
-with nvcc into a shared library with a plain C interface at first use
-(`build_kernels`) and called through ctypes on PyTorch's current stream.
-Beside each is its plain PyTorch version (`admm_chunk_f64_plain`,
-`admm_chunk_f32_plain`): the same iteration in tensor ops, with the
+All three are hand-written CUDA C++ for sm_90a in `csrc/admm_chunk.cu`,
+built with nvcc into a shared library with a plain C interface at first
+use (`build_kernels`) and called through ctypes on PyTorch's current
+stream. Beside each is its plain PyTorch version (``*_plain``): the same
+iteration in tensor ops, with the
 mat-vec accumulated in the same j order and no fused multiply-add. A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
 
 Differences from the Pallas kernels, by design:
 
-* the state is the reduced engine's own ``(xc, s, mu, v)`` — the Pallas
-  wrappers take the box and cone duals split and lb/ub padded with
-  -+inf on the cone rows, which computes the same function;
+* `admm_chunk_f64` / `admm_chunk_f32` take the reduced engine's own
+  state ``(xc, s, mu, v)`` — the Pallas wrappers take the box and cone
+  duals split and lb/ub padded with -+inf on the cone rows, which
+  computes the same function (only there: with finite bounds on a cone
+  row the two duals differ, which is why the full layout has its own
+  kernel and does not permute its cone rows to the tail);
 * the residual norms of an instance that does no iteration in the chunk
   are carried through from the inputs (the XLA chunk bodies' semantics;
   the Pallas kernels restart them from zero in every chunk);
@@ -100,6 +107,12 @@ def build_kernels() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_void_p,
     ]
     lib.admm_chunk_f32.restype = ctypes.c_int
+    lib.admm_chunk_full_f64.argtypes = common + [
+        ctypes.c_double, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.admm_chunk_full_f64.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -197,6 +210,85 @@ def admm_chunk_f32_plain(
         x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
         kb, K, max_iter, weights, False,
     )
+
+
+# the primal-increment gate of `admm_chunk_full_f64`: off (exact presolve),
+# the ds engine's (non-cone rows against eps_bound, the cone segment
+# against eps_fcone) or the f64 parity engine's (all rows against
+# eps_bound, the segment against eps_fcone)
+GATE_OFF, GATE_SPLIT, GATE_ALL = 0, 1, 2
+
+
+def admm_chunk_full_f64_plain(
+    Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+    x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
+    xrn, lrn, prim, dual, *, ls, K, max_iter, gate=GATE_OFF,
+):
+    """Plain PyTorch version of `admm_chunk_full_f64` (same arguments and
+    results)."""
+    n, nc = x.shape[0], lam_bar.shape[0]
+    dt = x.dtype
+    seg = slice(ls, ls + nc)
+    other = torch.tensor([r for r in range(n) if not ls <= r < ls + nc],
+                         dtype=torch.long, device=x.device)
+    eps_b = torch.tensor(eps_bound, dtype=dt)
+    eps_f = torch.tensor(eps_fcone, dtype=dt)
+    zeros_b = torch.zeros_like(rho)
+    done = done.clone()
+
+    def with_seg(a, s):
+        return torch.cat([a[:ls], s, a[ls + nc:]], dim=0) if nc else a
+
+    for _ in range(K):
+        active = ~done & (itv < max_iter)
+        if not bool(active.any()):
+            break
+        s_prev = with_seg(x_bar, lam_bar)
+        v_new = s_prev - with_seg(mu_x, mu_lam)
+        y = Fj[0] * v_new[0]
+        for j in range(1, n):
+            y = y + Fj[j] * v_new[j]
+        xn = x_const + rho * y
+        xb_new = torch.clamp(xn + mu_x, lb, ub)
+        r_x = xn - xb_new
+        n_xrn = r_x.abs().amax(dim=0)
+        if nc:
+            lam_new = project_cone_ds(xn[seg] + mu_lam, mu_f)
+            r_l = xn[seg] - lam_new
+            n_lrn = r_l.abs().amax(dim=0)
+            mul_new = mu_lam + r_l
+        else:
+            lam_new, mul_new, n_lrn = lam_bar, mu_lam, zeros_b
+        s_now = with_seg(xb_new, lam_new)
+        dprim = xn - s_now
+        dchange = s_now - s_prev
+        n_prim = sqrt_rn((dprim * dprim).sum(dim=0))
+        n_dual = rho * sqrt_rn((dchange * dchange).sum(dim=0))
+        conv = (n_lrn < eps_f) & (n_xrn < eps_b)
+        if gate != GATE_OFF:
+            dx = (xn - x).abs()
+            if gate == GATE_ALL:
+                conv = conv & (dx.amax(dim=0) < eps_b)
+            elif len(other):
+                conv = conv & (dx[other].amax(dim=0) < eps_b)
+            if nc:
+                conv = conv & (dx[seg].amax(dim=0) < eps_f)
+        a2 = active[None, :]
+        x = torch.where(a2, xn, x)
+        x_bar = torch.where(a2, xb_new, x_bar)
+        lam_bar = torch.where(a2, lam_new, lam_bar)
+        mu_x = torch.where(a2, mu_x + r_x, mu_x)
+        mu_lam = torch.where(a2, mul_new, mu_lam)
+        v = torch.where(a2, v_new, v)
+        xrn = torch.where(active, n_xrn, xrn)
+        lrn = torch.where(active, n_lrn, lrn)
+        prim = torch.where(active, n_prim, prim)
+        dual = torch.where(active, n_dual, dual)
+        n_iter = torch.where(conv & active, itv, n_iter)
+        itv = torch.where(active, itv + 1, itv)
+        done = done | (conv & active)
+    return (x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
+            xrn, lrn, prim, dual)
 
 
 # --------------------------------------------------------------------------
@@ -340,10 +432,91 @@ def admm_chunk_f32(
     return out
 
 
+def admm_chunk_full_f64(
+    Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+    x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
+    xrn, lrn, prim, dual, *, ls, K, max_iter, gate=GATE_OFF,
+):
+    """Run up to K fused f64 ADMM iterations per instance in the full
+    layout (`fcc_qp_tpu.ops.pallas_admm.admm_chunk_pallas` as the
+    full-splitting engine calls it, unit weights).
+
+    All arrays batch-last, f64 unless noted: Fj (n, n, B) j-major
+    operator; x_const, lb, ub (n, B), lb / ub possibly infinite; mu_f
+    (nc/3, B); rho (B,); the state x, x_bar, mu_x, v (n, B) and lam_bar,
+    mu_lam (nc, B), the cone segment at rows ``[ls, ls + nc)``; done (B,)
+    bool; n_iter / itv (B,) int32; xrn / lrn / prim / dual (B,) carried
+    for idle instances. ``gate``: `GATE_OFF`, `GATE_SPLIT` or `GATE_ALL`.
+    n <= 64; nc = 0 is allowed.
+
+    Returns ``(x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
+    xrn, lrn, prim, dual)``. CPU tensors take
+    `admm_chunk_full_f64_plain`; CUDA tensors launch the kernel (counted
+    in ``admm_chunk_full_f64.launches``) or raise.
+    """
+    args = (Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+            x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
+            xrn, lrn, prim, dual)
+    if x.device.type == "cpu":
+        return admm_chunk_full_f64_plain(*args, ls=ls, K=K,
+                                         max_iter=max_iter, gate=gate)
+    n, B = x.shape
+    nc = lam_bar.shape[0]
+    if not (1 <= n <= 64 and nc % 3 == 0 and 0 <= ls and ls + nc <= n
+            and gate in (GATE_OFF, GATE_SPLIT, GATE_ALL)):
+        raise ValueError(
+            f"unsupported layout n={n}, nc={nc}, ls={ls}, gate={gate} "
+            "(n <= 64)")
+    dev = x.device
+    f64, i32 = torch.float64, torch.int32
+    done_i = done.to(i32).contiguous()
+    # the kernel indexes the cone arrays from their own base pointers;
+    # give an empty segment a valid one-row buffer
+    pad = lambda a: a if nc else torch.zeros((1, B), dtype=f64, device=dev)
+    ncr = max(nc, 1)
+    specs = [
+        ("Fj", Fj, (n, n, B), f64), ("x_const", x_const, (n, B), f64),
+        ("lb", lb, (n, B), f64), ("ub", ub, (n, B), f64),
+        ("mu_f", pad(mu_f), (max(nc // 3, 1), B), f64),
+        ("rho", rho, (B,), f64),
+        ("x", x, (n, B), f64), ("x_bar", x_bar, (n, B), f64),
+        ("lam_bar", pad(lam_bar), (ncr, B), f64),
+        ("mu_x", mu_x, (n, B), f64), ("mu_lam", pad(mu_lam), (ncr, B), f64),
+        ("v", v, (n, B), f64),
+        ("done", done_i, (B,), i32), ("n_iter", n_iter, (B,), i32),
+        ("itv", itv, (B,), i32), ("xrn", xrn, (B,), f64),
+        ("lrn", lrn, (B,), f64), ("prim", prim, (B,), f64),
+        ("dual", dual, (B,), f64),
+    ]
+    for name, t, shp, dt in specs:
+        _check(name, t, shp, dt, dev)
+    rows = (n, n, ncr, n, ncr, n)
+    outs = ([torch.empty((r, B), dtype=f64, device=dev) for r in rows]
+            + [torch.empty((B,), dtype=i32, device=dev) for _ in range(3)]
+            + [torch.empty((B,), dtype=f64, device=dev) for _ in range(4)])
+    ptrs = (ctypes.c_void_p * 32)(
+        *[t.data_ptr() for _, t, _, _ in specs],
+        *[t.data_ptr() for t in outs],
+    )
+    lib = build_kernels()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.admm_chunk_full_f64(
+        ptrs, float(eps_bound), float(eps_fcone), B, n, nc, ls, K,
+        max_iter, int(gate), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"admm_chunk_full_f64: CUDA error {err} at launch")
+    admm_chunk_full_f64.launches += 1
+    xo, xbo, lamo, muxo, mulo, vo, doneo, nio, itvo, *res = outs
+    return (xo, xbo, lamo[:nc], muxo, mulo[:nc], vo, doneo != 0, nio, itvo,
+            *res)
+
+
 admm_chunk_f64.launches = 0
 admm_chunk_f32.launches = 0
+admm_chunk_full_f64.launches = 0
 
-KERNELS = (admm_chunk_f64, admm_chunk_f32)
+KERNELS = (admm_chunk_f64, admm_chunk_f32, admm_chunk_full_f64)
 
 
 def reset_launch_counts() -> None:

@@ -1,5 +1,7 @@
-"""Result types of a solve (port of `fcc_qp_tpu/types.py`).
+"""Problem, warm-state and result types (port of `fcc_qp_tpu/types.py`).
 
+  * `QPBatch`          <- the seven arguments of the reference's Solve
+  * `WarmStart`        <- the reference's persistent primal and duals
   * `FCCQPSolveStatus` <- the reference status enum, plus
     ``kFactorizationFailed``
   * `FCCQPDetails`     <- the reference details struct, plus the
@@ -8,7 +10,8 @@
 
 The JAX package registers these as pytrees; here they are plain frozen
 dataclasses of tensors. Every tensor field is batch-LEADING: ``(B,)``
-for the details and ``(B, n)`` for ``z``.
+for the details and ``(B, n)`` for ``z``; `QPBatch` and `WarmStart` take
+any leading batch shape (none for a single instance).
 """
 
 from __future__ import annotations
@@ -27,6 +30,48 @@ class FCCQPSolveStatus(enum.IntEnum):
     # can only come from a broken factorization chain, so it never reads
     # kSuccess.
     kFactorizationFailed = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class QPBatch:
+    """One QP (or a batch of QPs) in stacked dense form, batch-leading:
+    Q (..., n, n), b (..., n), A_eq (..., m, n), b_eq (..., m),
+    friction_coeffs (..., nc/3), lb / ub (..., n)."""
+
+    Q: torch.Tensor
+    b: torch.Tensor
+    A_eq: torch.Tensor
+    b_eq: torch.Tensor
+    friction_coeffs: torch.Tensor
+    lb: torch.Tensor
+    ub: torch.Tensor
+
+    def to(self, *args, **kw) -> "QPBatch":
+        """`torch.Tensor.to` applied to every field."""
+        return QPBatch(*(getattr(self, f.name).to(*args, **kw)
+                         for f in dataclasses.fields(self)))
+
+
+@dataclasses.dataclass(frozen=True)
+class WarmStart:
+    """ADMM state persisting across solves of the f64 parity engine
+    (primal and scaled duals), batch-leading."""
+
+    x: torch.Tensor
+    mu_x: torch.Tensor
+    mu_lambda_c: torch.Tensor
+
+    @staticmethod
+    def zeros(shape, batch_shape=(), dtype=torch.float64,
+              device="cpu") -> "WarmStart":
+        z = lambda k: torch.zeros((*batch_shape, k), dtype=dtype,
+                                  device=device)
+        return WarmStart(x=z(shape.num_vars), mu_x=z(shape.num_vars),
+                         mu_lambda_c=z(shape.nc))
+
+    def to(self, *args, **kw) -> "WarmStart":
+        return WarmStart(self.x.to(*args, **kw), self.mu_x.to(*args, **kw),
+                         self.mu_lambda_c.to(*args, **kw))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -72,10 +72,11 @@ class StageClock:
         self.out[stage] = self.out.get(stage, 0.0) + (now - self.t)
         self.t = now
 
-    def count(self, key: str, mask: torch.Tensor) -> None:
-        """Adds the number of set entries of ``mask`` to ``out[key]`` (a
-        host read, so only when recording)."""
+    def count(self, key: str, mask) -> None:
+        """Adds the number of set entries of ``mask`` (or an int) to
+        ``out[key]`` (a host read, so only when recording)."""
         if self.out is None:
             return
-        self.out[key] = self.out.get(key, 0) + int(mask.sum())
+        n = int(mask.sum()) if isinstance(mask, torch.Tensor) else int(mask)
+        self.out[key] = self.out.get(key, 0) + n
 

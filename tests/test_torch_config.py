@@ -7,6 +7,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import fcc_qp_tpu.config as jcfg
 import fcc_qp_tpu.models.osc as josc
@@ -14,6 +15,11 @@ import fcc_qp_tpu.types as jtypes
 import fcc_qp_tpu_torch.config as tcfg
 import fcc_qp_tpu_torch.models.osc as tosc
 import fcc_qp_tpu_torch.types as ttypes
+
+# torch's CPU thread pool runs the port's small batched products many
+# times slower at its default thread count than at one or two, and the
+# suite's test workers share the cores
+torch.set_num_threads(1)
 
 
 def _fields(cls):

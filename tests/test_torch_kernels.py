@@ -23,6 +23,11 @@ from fcc_qp_tpu_torch.models.osc import CASSIE, HUMANOID, generate_osc_batch
 from fcc_qp_tpu_torch.ops import pallas_admm as tk
 from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
 
+# torch's CPU thread pool runs the port's small batched products many
+# times slower at its default thread count than at one or two, and the
+# suite's test workers share the cores
+torch.set_num_threads(1)
+
 B, K, MAX_ITER = 128, 16, 2000
 # plain-version iterations run before the compared chunk, per model, so
 # that convergence events fall inside it: (f32 chunk test, f64 chunk

@@ -25,6 +25,11 @@ from fcc_qp_tpu_torch.ops import polish as tpol
 from fcc_qp_tpu_torch.ops import projections as tproj
 from fcc_qp_tpu_torch.ops import scaling as tscal
 
+# torch's CPU thread pool runs the port's small batched products many
+# times slower at its default thread count than at one or two, and the
+# suite's test workers share the cores
+torch.set_num_threads(1)
+
 SHAPE = CASSIE.shape
 RHO = 0.05
 

@@ -1,8 +1,9 @@
 """Rules of the port (`fcc_qp_tpu_torch`): it imports neither JAX nor the
 JAX package, pins full-f32 matmuls, runs on the card unless asked for
-the CPU, rejects the options this slice does not cover, sends CPU
-tensors to the kernels' plain versions without launching anything, and
-`chip_smoke.py` refuses to report without a card."""
+the CPU, rejects the options it does not cover (and solves the ones an
+earlier slice rejected), sends CPU tensors to the kernels' plain
+versions without launching anything, and `chip_smoke.py` refuses to
+report without a card."""
 
 import os
 import shutil
@@ -18,13 +19,20 @@ from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_batch
 from fcc_qp_tpu_torch.ops import pallas_admm as tk
 from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
 
+# torch's CPU thread pool runs the port's small batched products many
+# times slower at its default thread count than at one or two, and the
+# suite's test workers share the cores
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SUBPROCESS_SOLVE = """
 import sys
+import torch
 import fcc_qp_tpu_torch as T
 from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_batch
 from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
+torch.set_num_threads(1)
 qp = T.to_ds_batch(stack_qp_dicts(generate_osc_batch(CASSIE, 4, seed=0)),
                    device="cpu")
 opts = T.FCCQPOptions(max_iter=3000, rho=0.05, eps_fcone=1e-6,
@@ -67,18 +75,60 @@ def test_entry_points_default_to_cuda():
         T.solve_batched_ds(qp, CASSIE.shape, opts)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(adaptive_rho=True), dict(alpha=1.5), dict(kkt_factor="ds"),
-    dict(splitting="full"), dict(presolve="exact"),
-])
+def test_new_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.FCCQP(60, 38, 12, 38)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.FCCQP(60, 38, 12, 38, engine="ds")
+    st = stack_qp_dicts(generate_osc_batch(CASSIE, 2, seed=0))
+    qp = T.QPBatch(**{k: torch.from_numpy(v) for k, v in st.items()})
+    one = T.QPBatch(**{k: torch.from_numpy(v[0]) for k, v in st.items()})
+    for call in (lambda: T.solve_batched(qp, CASSIE.shape),
+                 lambda: T.solve(one, CASSIE.shape),
+                 lambda: T.replay(qp, CASSIE.shape),
+                 lambda: T.warm_start_f64_from_numpy(
+                     st["b"], st["b"], st["b"][:, :12])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # the full-splitting engine (the package defaults) too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.solve_batched_ds(T.to_ds_batch(st, device="cpu"), CASSIE.shape)
+
+
+BASE = dict(presolve="operator", scaling=True, splitting="constrained")
+
+
+@pytest.mark.parametrize("kw", [dict(adaptive_rho=True), dict(alpha=1.5)])
 def test_uncovered_options_raise(kw):
-    base = dict(presolve="operator", scaling=True, splitting="constrained")
     qp = T.to_ds_batch(
         stack_qp_dicts(generate_osc_batch(CASSIE, 2, seed=0)), device="cpu"
     )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.solve_batched_ds(qp, CASSIE.shape, T.FCCQPOptions(**{**base, **kw}),
+        T.solve_batched_ds(qp, CASSIE.shape, T.FCCQPOptions(**{**BASE, **kw}),
                            device="cpu")
+
+
+def _solved(sol, B):
+    z = sol.z.numpy()
+    assert z.shape == (B, CASSIE.shape.num_vars) and np.isfinite(z).all()
+    st = sol.details.solve_status.numpy()
+    assert np.isin(st, (0, 1)).all()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kkt_factor="ds"), dict(splitting="full"), dict(presolve="exact"),
+])
+def test_formerly_uncovered_options_solve(kw):
+    """The options an earlier slice rejected now solve on the CPU (their
+    parity with the JAX package: tests/test_torch_full_engine.py)."""
+    qp = T.to_ds_batch(
+        stack_qp_dicts(generate_osc_batch(CASSIE, 2, seed=0)), device="cpu"
+    )
+    sol, _ = T.solve_batched_ds(qp, CASSIE.shape,
+                                T.FCCQPOptions(**{**BASE, **kw}), device="cpu")
+    _solved(sol, 2)
 
 
 def test_replay_defaults_to_cuda():
@@ -95,19 +145,28 @@ def test_replay_defaults_to_cuda():
         T.replay_ds(qp, CASSIE.shape, opts)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(adaptive_rho=True), dict(alpha=1.5), dict(kkt_factor="ds"),
-    dict(splitting="full"), dict(presolve="exact"),
-])
+@pytest.mark.parametrize("kw", [dict(adaptive_rho=True), dict(alpha=1.5)])
 def test_replay_uncovered_options_raise(kw):
-    base = dict(presolve="operator", scaling=True, splitting="constrained")
     qp = T.to_ds_batch(
         stack_qp_dicts(generate_osc_batch(CASSIE, 4, seed=0)), device="cpu"
     )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.replay_ds_streams(qp, CASSIE.shape,
-                            T.FCCQPOptions(**{**base, **kw}), n_streams=2,
+                            T.FCCQPOptions(**{**BASE, **kw}), n_streams=2,
                             device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kkt_factor="ds"), dict(splitting="full"), dict(presolve="exact"),
+])
+def test_replay_formerly_uncovered_options_solve(kw):
+    qp = T.to_ds_batch(
+        stack_qp_dicts(generate_osc_batch(CASSIE, 4, seed=0)), device="cpu"
+    )
+    sols, _ = T.replay_ds_streams(qp, CASSIE.shape,
+                                  T.FCCQPOptions(**{**BASE, **kw}),
+                                  n_streams=2, device="cpu")
+    _solved(sols, 4)
 
 
 def _chunk_inputs(dtype, B=8, k=7, kb=4, seed=0):
@@ -129,19 +188,40 @@ def _chunk_inputs(dtype, B=8, k=7, kb=4, seed=0):
     return args, dict(kb=kb, K=5, max_iter=100, weights=t(np.ones((k, B))))
 
 
-@pytest.mark.parametrize("prec", ["f64", "f32"])
+@pytest.mark.parametrize("prec", ["f64", "f32", "full_f64"])
 def test_cpu_tensors_take_plain_version(prec):
-    dtype = torch.float64 if prec == "f64" else torch.float32
+    dtype = torch.float32 if prec == "f32" else torch.float64
     wrapper = getattr(tk, f"admm_chunk_{prec}")
     plain = getattr(tk, f"admm_chunk_{prec}_plain")
     args, kw = _chunk_inputs(dtype)
+    if prec == "full_f64":
+        args, kw = _full_chunk_inputs(args, kw)
     tk.reset_launch_counts()
     got = wrapper(*args, **kw)
     want = plain(*args, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert all(fn.launches == 0 for fn in tk.KERNELS)
-    assert int(got[6].min()) == 5  # every instance ran the whole chunk
+    itv = got[8] if prec == "full_f64" else got[6]
+    assert int(itv.min()) == 5  # every instance ran the whole chunk
+
+
+def _full_chunk_inputs(args, kw):
+    """The same instances in the full layout: n = 7 rows, the cone triple
+    at rows 2-4 between box rows, box and cone duals apart."""
+    (F, xc, lb, ub, muf, rho, eb, ef, x, s, mu, v, done, n_iter, itv,
+     *res) = args
+    k, B = x.shape
+    perm = torch.tensor([0, 1, 4, 5, 6, 2, 3])   # rows 2-4 hold the cone
+    inf = torch.full((3, B), float("inf"), dtype=x.dtype)
+    lb7 = torch.cat([lb[:2], -inf, lb[2:]])
+    ub7 = torch.cat([ub[:2], inf, ub[2:]])
+    full = (F[perm][:, perm].contiguous(), xc[perm].contiguous(), lb7, ub7,
+            muf, rho, eb, ef, x[perm].contiguous(), s[perm].contiguous(),
+            s[4:].contiguous(), mu[perm].contiguous(), mu[4:].contiguous(),
+            v[perm].contiguous(), done, n_iter, itv, *res)
+    return full, dict(ls=2, K=kw["K"], max_iter=kw["max_iter"],
+                      gate=tk.GATE_SPLIT)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -161,3 +241,4 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+

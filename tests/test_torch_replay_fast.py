@@ -9,6 +9,7 @@ ones that file compiles.
 
 import numpy as np
 import pytest
+import torch
 
 import fcc_qp_tpu_torch as T
 from fcc_qp_tpu.core import ds_engine as jeng
@@ -16,6 +17,11 @@ from fcc_qp_tpu.models.osc import CASSIE, generate_osc_sequence
 from fcc_qp_tpu.utils.io import stack_qp_dicts
 from test_ds_engine import FAST_OPTS
 from test_torch_slice import _d, _z
+
+# torch's CPU thread pool runs the port's small batched products many
+# times slower at its default thread count than at one or two, and the
+# suite's test workers share the cores
+torch.set_num_threads(1)
 
 TOPTS = T.FCCQPOptions(**{
     f: getattr(FAST_OPTS, f) for f in FAST_OPTS.__dataclass_fields__

@@ -9,6 +9,7 @@ options are those of `tests/test_two_phase.py` and `tests/test_polish.py`
 
 import numpy as np
 import pytest
+import torch
 
 import fcc_qp_tpu_torch as T
 from fcc_qp_tpu import FCCQPOptions as JOpts
@@ -16,6 +17,11 @@ from fcc_qp_tpu.core.ds_engine import solve_batched_ds as jsolve
 from fcc_qp_tpu.core.ds_engine import to_ds_batch as jto
 from fcc_qp_tpu.models.osc import CASSIE, generate_osc_batch, generate_osc_sequence
 from fcc_qp_tpu.utils.io import stack_qp_dicts
+
+# torch's CPU thread pool runs the port's small batched products many
+# times slower at its default thread count than at one or two, and the
+# suite's test workers share the cores
+torch.set_num_threads(1)
 
 TWO_PHASE = dict(
     max_iter=2000, rho=0.05, eps_fcone=1e-6, eps_bound=1e-6,
