@@ -9,8 +9,10 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
 
 1. Build the three ADMM chunk kernels from `fcc_qp_tpu_torch/csrc`
    (nvcc, sm_90a) and print the build seconds, the compiler's register
-   report (which must show no stack frame and no spills in any
-   instantiation) and the card's name and power limit.
+   report (kept beside a cached build; it must name every instantiation
+   and show no stack frame and no spills in any; registers per
+   instantiation go into the JSON line) and the card's name and power
+   limit.
 2. Main path: a cold batched Cassie solve, B=8192
    (`generate_osc_batch(CASSIE, 8192, seed=0)` -> `to_ds_batch` ->
    `solve_batched_ds`) at the bench flags (polish on, 4 rounds), run
@@ -53,7 +55,9 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    timed and once staged. Checks: no kFactorizationFailed and no NaN,
    residuals <= 1e-6 on kSuccess, a kSuccess share at least the JAX
    package's on the first 512 instances less 1%, the full-layout kernel
-   launched.
+   launched. One more solve under `torch.profiler` sums the kernel's
+   device time over its launches, printed beside the `iterate` stage
+   (the rest of that stage is the adaptive-rho rebuilds and the host).
 7. The drop-in `FCCQP(60, 38, 12, 38)` over a 200-step walking log, the
    reference loop (``set_warm_start(i > 0)``), on the f64 engine at the
    README quick-start options and on the ds engine with rho = 0.05:
@@ -64,16 +68,32 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    probes on both engines.
 8. The full-layout kernel against its plain version on the full solve's
    first and last chunks and one B = 1 chunk of the f64 drop-in replay
-   (timed, with bounds), and on a quadruped chunk whose cone triple
-   straddles a warp's two row slots: state, counters and max-norms bit
-   for bit, the 2-norms to 1e-12 relative.
-9. One JSON line with a record per kernel (the first chunk's numbers
+   (timed, with bounds), on a quadruped chunk whose cone triple
+   straddles a warp's two row slots, and on the first (timed, with
+   bounds: ``*_generic`` keys, one case per row-slot count) and last
+   chunks of random problems whose row counts are no model's
+   (`GENERIC_DIMS`): state, counters and max-norms bit for bit, the
+   2-norms to 1e-12 relative.
+9. The humanoid (n = 76, the kernels' third row slot), each path counted
+   from zero: the full engine on `generate_osc_batch(HUMANOID, 1024,
+   seed=0)` at `FULL_OPTS` (not cut: no kFactorizationFailed, no NaN,
+   kSuccess residuals <= 1e-6, a kSuccess share at least the JAX
+   package's on the first 64 less 1%, the kernel launched at n = 76);
+   the drop-in `FCCQP(76, 41, 24, 52)` on the f64 engine over a 20-step
+   walking log at `HUMANOID_DROPIN_OPTS` (statuses within two of the JAX
+   package's, the drop-in step checks); the reduced two-phase path with
+   ``splitting="full"`` (both reduced kernels at k = 76). Then the
+   full-layout kernel on the full engine's first chunk and both reduced
+   kernels on the reduced path's first chunk against their plain
+   versions, timed with bounds (``*_n76``, ``*_k76`` keys), and each
+   kernel's resident blocks per SM.
+10. One JSON line with a record per kernel (the first chunk's numbers
    under the plain keys, the straggler chunk's under ``*_tail``, the
-   humanoid's under ``*_k47``, the warm step's under ``*_warm``, the
-   drop-in chunk's under ``*_b1``; ``ms_idle`` is a launch on the
-   straggler inputs with every instance done; ``launches`` sums every
-   path's count, and ``launches_<path>`` splits it), the `nvidia-smi`
-   line, and the final JSON status line.
+   humanoid's under ``*_k47`` / ``*_k76`` / ``*_n76``, the warm step's
+   under ``*_warm``, the drop-in chunk's under ``*_b1``; ``ms_idle`` is
+   a launch on the straggler inputs with every instance done;
+   ``launches`` sums every path's count, and ``launches_<path>`` splits
+   it), the `nvidia-smi` line, and the final JSON status line.
 
 Also printed: the bench solve's host seconds per chunk (the approach and
 endgame stage seconds over their launches), beside the kernels' own
@@ -195,18 +215,25 @@ def recorded_solve(engine, solve):
     return out, rec
 
 
-def check_ptxas(log_text: str) -> None:
-    """Every kernel instantiation keeps its state in registers: the
-    compiler reports no stack frame and no spills."""
-    import re
+# the kernel instantiations of the library: both reduced kernels and the
+# full layout, one per row-slot count
+INSTANTIATIONS = tuple(
+    [f"admm_chunk_warp<{t}, {nr}>" for t in ("double", "float")
+     for nr in (1, 2, 3)]
+    + [f"admm_chunk_full_warp<{nr}>" for nr in (1, 2, 3)])
 
-    props = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                       r"(\d+) bytes spill loads", log_text)
-    check(len(props) > 0, "no ptxas resource report in the build log")
-    for frame, st, ld in props:
-        check((frame, st, ld) == ("0", "0", "0"),
-              f"ptxas: {frame} bytes stack frame, {st} / {ld} bytes spill "
-              f"stores / loads")
+
+def check_ptxas(report: dict) -> None:
+    """Every kernel instantiation of the loaded library keeps its state in
+    registers: the compiler's report (kept beside a cached build) names
+    each one, with no stack frame and no spills."""
+    check(sorted(report) == sorted(INSTANTIATIONS),
+          f"ptxas report names {sorted(report)}, not the library's "
+          f"instantiations {sorted(INSTANTIATIONS)}")
+    for name, (_, frame, st, ld) in report.items():
+        check((frame, st, ld) == (0, 0, 0),
+              f"ptxas [{name}]: {frame} bytes stack frame, {st} / {ld} "
+              f"bytes spill stores / loads")
 
 
 def time_cuda(fn, reps):
@@ -534,6 +561,26 @@ DROPIN_DS_RHO = 0.05
 # rho is the real log's); the card may differ by two steps, since its
 # matrix products round differently from the CPU's
 DROPIN_JAX_STATUSES = {"f64": (0, 200), "ds": (162, 38)}
+# the humanoid (n = 76, the kernels' third row slot): the full engine on
+# generate_osc_batch(HUMANOID, 1024, seed=0) at FULL_OPTS, whose kSuccess
+# share must reach the JAX package's on the first 64 instances on the CPU
+# less 1% (exp_full_reference.py), and the drop-in FCCQP(76, 41, 24, 52)
+# on the f64 engine over a short walking log at a rho the humanoid's raw
+# data converges at (the README's 5e-5 leaves every step at the cap)
+# (n, num_eq, nc, lambda_c_start) of random problems whose row counts
+# are no model's: the full-layout kernel at one, two and three row slots
+# (a cone triple across slots 1 / 2), and a segment of 36 rows, where a
+# lane owns two cone rows
+GENERIC_DIMS = ((24, 8, 6, 10), (50, 20, 12, 31), (90, 30, 24, 60),
+                (90, 30, 36, 40))
+HUMANOID_B = 1024
+HUMANOID_JAX_SHARE_64 = 64 / 64
+HUMANOID_DROPIN_STEPS = 20
+HUMANOID_DROPIN_OPTS = dict(rho=0.01, eps_fcone=1e-6, eps_bound=1e-6,
+                            max_iter=400)
+# the statuses of that loop in the JAX package on the CPU: (kSuccess,
+# kMaxIterations)
+HUMANOID_DROPIN_JAX_STATUSES = (20, 0)
 FULL_NAMES = ("x", "x_bar", "lam_bar", "mu_x", "mu_lam", "v", "done",
               "n_iter", "itv", "xrn", "lrn", "prim", "dual")
 
@@ -596,6 +643,34 @@ def compare_full(case, kernel, plain, args, kw, time_it=True):
            f"ms per call), plain {rec['plain_ms']:.6f} ms" if time_it else "")
         + f", bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})")
     return rec
+
+
+def random_batch(n, m, nc, ls, Bn, seed):
+    """A stacked batch of Bn random feasible QPs with n variables, m
+    equality rows and nc cone rows at [ls, ls + nc): b_eq from a point
+    inside the cones and the (half finite) bounds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {k: [] for k in ("Q", "b", "A_eq", "b_eq", "friction_coeffs",
+                           "lb", "ub")}
+    for _ in range(Bn):
+        G = rng.normal(size=(n, n))
+        x0 = 0.3 * rng.normal(size=n)
+        for c in range(nc // 3):
+            x0[ls + 3 * c:ls + 3 * c + 3] = (0.1 * rng.normal(),
+                                             0.1 * rng.normal(), 1.0)
+        A = rng.normal(size=(m, n))
+        box = rng.random(n) < 0.5
+        lb = np.where(box, x0 - 0.5, -np.inf)
+        ub = np.where(box, x0 + 0.5, np.inf)
+        for k, v in (("Q", G @ G.T + 0.1 * np.eye(n)),
+                     ("b", rng.normal(size=n)), ("A_eq", A),
+                     ("b_eq", A @ x0),
+                     ("friction_coeffs", np.full(nc // 3, 0.8)),
+                     ("lb", lb), ("ub", ub)):
+            out[k].append(v)
+    return {k: np.stack(v) for k, v in out.items()}
 
 
 def recorded_full(module, run):
@@ -662,6 +737,13 @@ def full_phase(engine):
         f"solve_time {float(d.solve_time[0]):.6f} s; stage seconds (and "
         f"the adaptive-rho refactor count) " + json.dumps(stages))
     log("[full] launches: " + json.dumps(launches))
+    device = full_kernel_device_time(
+        lambda st_: solve_batched_ds(qp, CASSIE.shape, opts, stage_times=st_))
+    log(f"[full] one solve under torch.profiler: admm_chunk_full_f64 device "
+        f"time {device['ms']:.6f} ms over {device['launches']} launches; its "
+        f"iterate stage {device['iterate_s']:.6f} s there and "
+        f"{stages['iterate']:.6f} s in the staged solve above (the rest of "
+        f"iterate: the adaptive-rho rebuilds and the host's chunk loop)")
     check((st != 2).all(), "kFactorizationFailed in the full-splitting solve")
     check(np.isfinite(z).all() and z.shape == (B, 60),
           "full-splitting solution not finite or of the wrong shape")
@@ -676,7 +758,47 @@ def full_phase(engine):
           "admm_chunk_full_f64 was not launched in the full-splitting solve")
     _, rec = recorded_full(
         engine, lambda: solve_batched_ds(qp, CASSIE.shape, opts))
-    return launches, rec
+    return launches, rec, device
+
+
+def full_kernel_device_time(solve):
+    """``solve(stage_times)`` once under `torch.profiler`: the summed
+    device time of the full-layout kernel's launches, their count, and the
+    solve's `iterate` stage seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    stages = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve(stages)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = [e for e in prof.events() if e.device_type == cuda
+          and "admm_chunk_full_warp" in e.name]
+    check(len(ev) > 0, "the profiler saw no admm_chunk_full_f64 launch")
+    ms = sum(e.time_range.end - e.time_range.start for e in ev) * 1e-3
+    return dict(ms=ms, launches=len(ev), iterate_s=stages["iterate"])
+
+
+def check_dropin_steps(tag, seq, res, st, n):
+    """Every kSuccess step of a drop-in loop: a finite z of n values,
+    the equality residual, bounds and cones."""
+    import numpy as np
+
+    for i in np.where(st == 0)[0]:
+        qp, r = seq[i], res[i]
+        z = r.z
+        eq = np.abs(qp["A_eq"] @ z - qp["b_eq"]).max()
+        check(np.isfinite(z).all() and z.shape == (n,),
+              f"drop-in {tag} step {i}: z not finite")
+        check(eq <= 1e-6 * (1.0 + np.abs(qp["b_eq"]).max()),
+              f"drop-in {tag} step {i}: |A_eq z - b_eq| {eq:.3e}")
+        check(r.details.bounds_viol <= 1e-5 and
+              r.details.friction_cone_viol <= 1e-5,
+              f"drop-in {tag} step {i}: bounds / cone violation "
+              f"{r.details.bounds_viol:.3e} / "
+              f"{r.details.friction_cone_viol:.3e}")
 
 
 def dropin_phase(solver_mod):
@@ -739,20 +861,7 @@ def dropin_phase(solver_mod):
         check(abs(int((st == 0).sum()) - want[0]) <= 2,
               f"drop-in {engine}: kSuccess count {(st == 0).sum()} is not "
               f"the JAX package's {want[0]} (+-2)")
-        # every kSuccess step: equality, bounds and cones
-        for i in np.where(st == 0)[0]:
-            qp, r = seq[i], res[i]
-            z = r.z
-            eq = np.abs(qp["A_eq"] @ z - qp["b_eq"]).max()
-            check(np.isfinite(z).all() and z.shape == (60,),
-                  f"drop-in {engine} step {i}: z not finite")
-            check(eq <= 1e-6 * (1.0 + np.abs(qp["b_eq"]).max()),
-                  f"drop-in {engine} step {i}: |A_eq z - b_eq| {eq:.3e}")
-            check(r.details.bounds_viol <= 1e-5 and
-                  r.details.friction_cone_viol <= 1e-5,
-                  f"drop-in {engine} step {i}: bounds / cone violation "
-                  f"{r.details.bounds_viol:.3e} / "
-                  f"{r.details.friction_cone_viol:.3e}")
+        check_dropin_steps(engine, seq, res, st, 60)
     check(launches["f64"]["admm_chunk_full_f64"] > 0,
           "admm_chunk_full_f64 was not launched in the f64 drop-in replay")
 
@@ -804,6 +913,133 @@ def dropin_phase(solver_mod):
     return launches, rec
 
 
+def humanoid_phase(engine, two_phase):
+    """Phase 9: the humanoid (n = 76 rows, the kernels' third row slot) on
+    the three paths that take it at that size: (a) the full engine on
+    `generate_osc_batch(HUMANOID, 1024, seed=0)` at FULL_OPTS, (b) the
+    drop-in `FCCQP(76, 41, 24, 52)` on the f64 engine over a 20-step
+    walking log, (c) the reduced two-phase path with ``splitting="full"``
+    (k = 76) on the same batch. Each path is counted from zero. Returns
+    {path: launches} and the recorders of (a) and (c)."""
+    import numpy as np
+    import torch
+
+    from fcc_qp_tpu_torch import (FCCQP, FCCQPOptions, solve_batched_ds,
+                                  to_ds_batch)
+    from fcc_qp_tpu_torch.models.osc import (HUMANOID, generate_osc_batch,
+                                             generate_osc_sequence)
+    from fcc_qp_tpu_torch.ops import pallas_admm
+    from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
+
+    shape = HUMANOID.shape
+    n = shape.num_vars
+    check(n > 64, f"the humanoid has n = {n}, not above two row slots")
+    counts = lambda: {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
+    qp = to_ds_batch(stack_qp_dicts(generate_osc_batch(
+        HUMANOID, HUMANOID_B, seed=0)))
+    launches = {}
+
+    # (a) the full engine: a recorded solve (its first chunk is held
+    # against the plain version below), then a counted, staged one
+    opts = FCCQPOptions(**FULL_OPTS)
+    t0 = time.perf_counter()
+    _, rec_full = recorded_full(
+        engine, lambda: solve_batched_ds(qp, shape, opts))
+    torch.cuda.synchronize()
+    log(f"[humanoid:full] recorded solve {time.perf_counter() - t0:.3f} s")
+    check(rec_full.first is not None and rec_full.first[0][8].shape[0] == n,
+          f"admm_chunk_full_f64 did not run the humanoid at n = {n}")
+    pallas_admm.reset_launch_counts()
+    stages = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol, _ = solve_batched_ds(qp, shape, opts, stage_times=stages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["full"] = counts()
+    d = sol.details
+    q = lambda t: t.cpu().numpy()
+    st, n_iter = q(d.solve_status), q(d.n_iter)
+    ok = st == 0
+    rb, rc = q(d.admm_residual_bounds), q(d.admm_residual_friction_cone)
+    z = q(sol.z)
+    log(f"[humanoid:full] B={HUMANOID_B}, n={n}, FULL_OPTS: kSuccess "
+        f"{ok.sum()}/{len(st)} = {ok.mean():.4%}; kMaxIterations "
+        f"{(st == 1).sum()}; kFactorizationFailed {(st == 2).sum()}; n_iter "
+        f"p50 {np.median(n_iter):.0f}, max {n_iter.max()}; staged wall "
+        f"{wall:.6f} s, stage seconds " + json.dumps(stages)
+        + "; launches " + json.dumps(launches["full"]))
+    check((st != 2).all(), "humanoid full engine: kFactorizationFailed")
+    check(np.isfinite(z).all() and z.shape == (HUMANOID_B, n)
+          and not np.isnan(rb).any() and not np.isnan(rc).any(),
+          "humanoid full engine: NaN or a solution of the wrong shape")
+    check((np.maximum(rb, rc)[ok] <= 1e-6).all(),
+          "humanoid full engine: kSuccess residual above 1e-6")
+    bar = HUMANOID_JAX_SHARE_64 - 0.01
+    check(ok.mean() >= bar, f"humanoid full engine: kSuccess {ok.mean():.4%}"
+          f" < {bar:.4%}")
+    check(launches["full"]["admm_chunk_full_f64"] > 0,
+          "humanoid full engine: admm_chunk_full_f64 not launched")
+
+    # (b) the drop-in class on the f64 engine
+    seq = generate_osc_sequence(HUMANOID, HUMANOID_DROPIN_STEPS, seed=0)
+    keys = ("Q", "b", "A_eq", "b_eq", "friction_coeffs", "lb", "ub")
+    solver = FCCQP(n, shape.num_eq, shape.nc, shape.lambda_c_start,
+                   engine="f64")
+    solver.set_options(FCCQPOptions(**HUMANOID_DROPIN_OPTS))
+    pallas_admm.reset_launch_counts()
+    res, walls = [], []
+    for i, step in enumerate(seq):
+        solver.set_warm_start(i > 0)
+        t0 = time.perf_counter()
+        solver.Solve(*(step[k] for k in keys))
+        res.append(solver.GetSolution())
+        walls.append(time.perf_counter() - t0)
+    launches["dropin"] = counts()
+    st = np.array([r.details.solve_status for r in res])
+    n_iter = np.array([r.details.n_iter for r in res])
+    want = HUMANOID_DROPIN_JAX_STATUSES
+    log(f"[humanoid:dropin] FCCQP({n}, {shape.num_eq}, {shape.nc}, "
+        f"{shape.lambda_c_start}) f64 engine, {len(seq)} steps at "
+        + json.dumps(HUMANOID_DROPIN_OPTS) + f": kSuccess {(st == 0).sum()}, "
+        f"kMaxIterations {(st == 1).sum()}, kFactorizationFailed "
+        f"{(st == 2).sum()} (the JAX package on the CPU: {want[0]}, "
+        f"{want[1]}); n_iter p50 {np.median(n_iter):.0f}, max "
+        f"{n_iter.max()}; Solve+GetSolution wall p50 "
+        f"{np.median(walls) * 1e3:.3f} ms; launches "
+        + json.dumps(launches["dropin"]))
+    check((st != 2).all(), "humanoid drop-in: kFactorizationFailed")
+    check(abs(int((st == 0).sum()) - want[0]) <= 2,
+          f"humanoid drop-in: kSuccess count {(st == 0).sum()} is not the "
+          f"JAX package's {want[0]} (+-2)")
+    check_dropin_steps("humanoid", seq, res, st, n)
+    check(launches["dropin"]["admm_chunk_full_f64"] > 0,
+          "humanoid drop-in: admm_chunk_full_f64 not launched")
+
+    # (c) the reduced path over all 76 coordinates, two-phase: both
+    # reduced kernels at k = 76. Its convergence is not checked (the
+    # reference's own humanoid runs fail on the reduced path).
+    full_split = two_phase.replace(splitting="full")
+    pallas_admm.reset_launch_counts()
+    t0 = time.perf_counter()
+    (sol, _), rec_red = recorded_solve(
+        engine, lambda: solve_batched_ds(qp, shape, full_split))
+    torch.cuda.synchronize()
+    launches["reduced"] = counts()
+    st = q(sol.details.solve_status)
+    log(f"[humanoid:reduced] two-phase, splitting='full', B={HUMANOID_B}: "
+        f"{time.perf_counter() - t0:.3f} s (recorded); kSuccess "
+        f"{(st == 0).sum()}, kMaxIterations {(st == 1).sum()}, "
+        f"kFactorizationFailed {(st == 2).sum()}; launches "
+        + json.dumps(launches["reduced"]))
+    check(np.isfinite(q(sol.z)).all(), "humanoid reduced path: z not finite")
+    for name in REDUCED_KERNELS:
+        got = rec_red[name].first
+        check(got is not None and got[0][8].shape[0] == n,
+              f"{name} did not run the humanoid at k = {n}")
+    return launches, rec_full, rec_red
+
+
 def main() -> int:
     import torch
 
@@ -834,11 +1070,10 @@ def main() -> int:
     pallas_admm.build_kernels()
     info = pallas_admm.build_info
     log(f"[build] {info['library']} in {info['seconds']:.2f} s")
-    for line in info.get("log", "").splitlines():
+    for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
-    if info.get("log"):
-        check_ptxas(info["log"])
+    check_ptxas(info["ptxas"])
     card = smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1023,7 +1258,7 @@ def main() -> int:
     import fcc_qp_tpu_torch.core.solver as solver_mod
     from fcc_qp_tpu_torch.models.osc import QUADRUPED
 
-    launches_full, rec_full = full_phase(engine)
+    launches_full, rec_full, full_device = full_phase(engine)
     launches_dropin, rec_dropin = dropin_phase(solver_mod)
     for r in records:
         r["launches_full"] = launches_full[r["name"]]
@@ -1055,16 +1290,71 @@ def main() -> int:
         qqp, QUADRUPED.shape, FCCQPOptions(**dict(FULL_OPTS, max_iter=200))))
     straddle = compare_full("quadruped_straddle", full_k, full_p,
                             *rec_q.first, time_it=False)
+    # row counts that are no model's, at every slot count: random
+    # problems, the first chunk timed
+    from fcc_qp_tpu_torch import ProblemShape
+    generic_err, generic = 0.0, {}
+    for dims in GENERIC_DIMS:
+        gshape = ProblemShape(*dims)
+        gqp = to_ds_batch(random_batch(*dims, 256, seed=dims[0]))
+        _, rec_g = recorded_full(engine, lambda: solve_batched_ds(
+            gqp, gshape, FCCQPOptions(**dict(FULL_OPTS, max_iter=200))))
+        case = f"n{dims[0]}_nc{dims[2]}"
+        for which in ("first", "last"):
+            g = compare_full(f"generic_{case}_{which}", full_k, full_p,
+                             *getattr(rec_g, which),
+                             time_it=which == "first")
+            generic_err = max(generic_err, g["max_abs_err"])
+            if which == "first":
+                generic[case] = g
+
+    # 9. the humanoid (n = k = 76, the kernels' third row slot) on its
+    # three paths, then each kernel on its first chunk there
+    launches_h, rec_hfull, rec_hred = humanoid_phase(engine, two_phase)
+    n76 = compare_full("humanoid_n76", full_k, full_p, *rec_hfull.first)
+    check(n76["n"] == 76, "the humanoid chunk is not n = 76")
+    for (name, kernel, plain, prec, _), r in zip(specs, records):
+        k76 = compare(name, "k76", kernel, plain, *rec_hred[name].first, prec)
+        check(k76["k"] == 76, f"{name}: the humanoid chunk is not k = 76")
+        r["launches_humanoid"] = sum(v[name] for v in launches_h.values())
+        r["launches"] += r["launches_humanoid"]
+        r.update(ms_k76=k76["ms"], plain_ms_k76=k76["plain_ms"],
+                 bound_ms_k76=k76["bound_ms"], bound_by_k76=k76["bound_by"],
+                 active_k76=k76["active"], max_abs_err_k76=k76["max_abs_err"],
+                 blocks_per_sm={k: pallas_admm.blocks_per_sm(name, k)
+                                for k in (22, 47, 76)})
+
+    # the kernels' resources: registers per instantiation (ptxas) and
+    # resident blocks per SM (the occupancy calculator)
+    ptxas = pallas_admm.build_info["ptxas"]
+    log("[kernel] ptxas per instantiation (registers, stack, spill "
+        "stores, spill loads): " + json.dumps(ptxas))
+    full_blocks = {n: pallas_admm.blocks_per_sm("admm_chunk_full_f64", n)
+                   for n in (24, 42, 60, 76, 90)}
+    log("[kernel] resident blocks per SM by row count: admm_chunk_full_f64 "
+        "(four instances a block at n <= 80, two above) "
+        + json.dumps(full_blocks) + "; "
+        + "; ".join(f"{r['name']} (four instances a block at k <= 64, one "
+                    f"above) " + json.dumps(r["blocks_per_sm"])
+                    for r in records))
+    for r in records:
+        inst = ("admm_chunk_warp<double" if r["name"] == "admm_chunk_f64"
+                else "admm_chunk_warp<float")
+        r["registers"] = {k: v[0] for k, v in ptxas.items()
+                          if k.startswith(inst)}
+    launches_hfull = sum(v["admm_chunk_full_f64"] for v in launches_h.values())
     records.append(dict(
         name="admm_chunk_full_f64", route="cuda",
         source="fcc_qp_tpu_torch/csrc/admm_chunk.cu",
         replaces="fcc_qp_tpu/ops/pallas_admm.py:445",
         launches=(launches_full["admm_chunk_full_f64"]
                   + sum(v["admm_chunk_full_f64"]
-                        for v in launches_dropin.values())),
+                        for v in launches_dropin.values())
+                  + launches_hfull),
         launches_full=launches_full["admm_chunk_full_f64"],
         launches_dropin=sum(v["admm_chunk_full_f64"]
                             for v in launches_dropin.values()),
+        launches_humanoid=launches_hfull,
         max_abs_err=first["max_abs_err"], ms=first["ms"],
         plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
         bound_by=first["bound_by"], library_ms=None,
@@ -1074,10 +1364,20 @@ def main() -> int:
         ms_b1=b1["ms"], plain_ms_b1=b1["plain_ms"],
         bound_ms_b1=b1["bound_ms"], bound_by_b1=b1["bound_by"],
         max_abs_err_b1=b1["max_abs_err"],
+        us_per_iteration_b1=b1["ms"] * 1e3 / b1["iters"],
         max_abs_err_straddle=straddle["max_abs_err"],
+        max_abs_err_generic=generic_err,
+        ms_generic={c: g["ms"] for c, g in generic.items()},
+        bound_ms_generic={c: g["bound_ms"] for c, g in generic.items()},
+        ms_n76=n76["ms"], plain_ms_n76=n76["plain_ms"],
+        bound_ms_n76=n76["bound_ms"], bound_by_n76=n76["bound_by"],
+        active_n76=n76["active"], max_abs_err_n76=n76["max_abs_err"],
+        blocks_per_sm=full_blocks, device_ms_full_solve=full_device["ms"],
+        registers={k: v[0] for k, v in ptxas.items()
+                   if k.startswith("admm_chunk_full_warp")},
     ))
 
-    # 9. result lines
+    # 10. result lines
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,8 +41,9 @@ iteration. `replay_ds` is the serial single-stream replay.
 
 Not ported yet (raise `NotImplementedError`, see ROADMAP.md queue A):
 over-relaxation (``alpha != 1``) on either engine, and adaptive rho on
-the reduced path. The kernels take at most 64 rows (n on the full
-engine, k on the reduced path): larger problems raise on the card.
+the reduced path. The kernels take at most 96 rows (n on the full
+engine, k on the reduced path; `ops.pallas_admm.MAX_ROWS`), which covers
+every model of `models/osc.py`: larger problems raise on the card.
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
 // Fused ADMM iteration chunks of the reduced FCCQP engine, for Hopper
-// (sm_90a). Two precisions share one template, each in two row layouts
-// (NR = 1 for k <= 32 constrained rows, NR = 2 for 32 < k <= 64):
+// (sm_90a). Two precisions share one template, each in three row layouts
+// (NR = 1 for k <= 32 constrained rows, NR = 2 for 32 < k <= 64, NR = 3
+// for 64 < k <= 96: every model in models/osc.py, the humanoid's 76 rows
+// with splitting="full" included):
 //
 //   admm_chunk_f64  replaces fcc_qp_tpu/ops/pallas_admm.py::admm_chunk_pallas
 //                   (Pallas body `_kernel`), which runs the endgame in
@@ -48,8 +50,8 @@
 // two instructions, so the attainable f32 / f64 rate is half the FMA peak
 // the bound divides by; the bound's definition is kept as it is.
 //
-// Design: one warp per instance, lane i owns constrained row i (and row
-// i + 32 when NR = 2). This turns the k x k mat-vec of one thread into k
+// Design: one warp per instance, lane i owns constrained row i (and rows
+// i + 32, i + 64 when NR = 2, 3). This turns the k x k mat-vec of one thread into k
 // dot products of length k run side by side; an iteration's latency is
 // about k dependent adds, a few shuffles and one cone projection.
 //   * The operator is read once per chunk, not once per iteration. NR = 1:
@@ -57,8 +59,9 @@
 //     compile-time indices (loops unrolled to 32, predicated on j < k);
 //     the mat-vec runs in groups of 8 columns, so a group's shuffles
 //     issue together, and pads the last group with exact no-op adds.
-//     NR = 2: the warp's k x k operator sits in dynamic shared memory.
-//     Loads are strided (one instance's F[j][i] are B elements apart), so
+//     NR = 2, 3: the warp's k x k operator sits in dynamic shared memory
+//     (NR = 3: one warp a block, 46 KB at k = 76 in f64; a block of four
+//     would hold one block an SM and no more instances). Loads are strided (one instance's F[j][i] are B elements apart), so
 //     each value moves as one 32-byte sector: 4x the operator's bytes in
 //     f64 and 8x in f32 from L2, once per chunk and only for instances
 //     that iterate (neighbouring warps hit the same sectors in L2).
@@ -87,9 +90,15 @@
 
 namespace {
 
-constexpr int KMAX = 64;
-constexpr int kWarps = 4;  // instances (warps) per block
+constexpr int KMAX = 96;   // three row slots of 32 lanes
+constexpr int kWarps = 4;  // instances (warps) per block, NR = 1, 2
 constexpr unsigned kFull = 0xffffffffu;
+
+// warps (instances) per block of admm_chunk_warp<T, NR>
+template <int NR>
+__host__ __device__ constexpr int warps_per_block() {
+  return NR == 3 ? 1 : kWarps;
+}
 
 template <typename T>
 struct ChunkArgs {
@@ -163,21 +172,25 @@ __device__ __forceinline__ T warp_max(T v) {
 template <int NR, typename T>
 __device__ __forceinline__ T from_row(const T (&a)[NR], int row) {
   T v = __shfl_sync(kFull, a[0], row & 31);
-  if constexpr (NR == 2) {
+  if constexpr (NR >= 2) {
     const T v1 = __shfl_sync(kFull, a[1], row & 31);
     if (row >= 32) v = v1;
+  }
+  if constexpr (NR == 3) {
+    const T v2 = __shfl_sync(kFull, a[2], row & 31);
+    if (row >= 64) v = v2;
   }
   return v;
 }
 
 template <typename T, int NR>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(warps_per_block<NR>() * 32)
     admm_chunk_warp(ChunkArgs<T> a) {
-  // NR == 2: each warp's k x k operator, [j][i]
+  // NR >= 2: each warp's k x k operator, [j][i]
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kWarps + warp;
+  const int b = blockIdx.x * warps_per_block<NR>() + warp;
   if (b >= a.B) return;  // warp-uniform
   const int B = a.B, k = a.k, kb = a.kb;
   const int done_in = a.done_in[b];
@@ -262,7 +275,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int e = lane; e < k * k; e += 32) Fs[e] = a.F[(size_t)e * B + b];
     __syncwarp();
   }
-  // NR == 2: shared-memory column offsets, clamped for rows >= k
+  // NR >= 2: shared-memory column offsets, clamped for rows >= k
   int fo[NR];
 #pragma unroll
   for (int q = 0; q < NR; ++q) fo[q] = valid[q] ? row[q] : 0;
@@ -300,10 +313,18 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
         for (int q = 0; q < NR; ++q) y[q] = y[q] + Fs[j * k + fo[q]] * vj;
       }
-      for (int j = 32; j < k; ++j) {
-        const T vj = __shfl_sync(kFull, vn[NR - 1], j - 32);
+      const int k2 = (NR == 3 && k > 64) ? 64 : k;
+      for (int j = 32; j < k2; ++j) {
+        const T vj = __shfl_sync(kFull, vn[1], j - 32);
 #pragma unroll
         for (int q = 0; q < NR; ++q) y[q] = y[q] + Fs[j * k + fo[q]] * vj;
+      }
+      if constexpr (NR == 3) {
+        for (int j = 64; j < k; ++j) {
+          const T vj = __shfl_sync(kFull, vn[2], j - 64);
+#pragma unroll
+          for (int q = 0; q < NR; ++q) y[q] = y[q] + Fs[j * k + fo[q]] * vj;
+        }
       }
     }
 
@@ -412,18 +433,45 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// the block's shared memory for k rows, above the default 48 KB limit
+// only after the attribute is raised
 template <typename T, int NR>
-int launch_rows(const ChunkArgs<T>& a, cudaStream_t stream) {
-  const size_t smem = NR == 2 ? (size_t)kWarps * a.k * a.k * sizeof(T) : 0;
-  if (smem > 48 * 1024) {
+int rows_prepare(int k, size_t* smem) {
+  *smem = NR >= 2 ? (size_t)warps_per_block<NR>() * k * k * sizeof(T) : 0;
+  if (*smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         admm_chunk_warp<T, NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        (int)*smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (a.B + kWarps - 1) / kWarps;
-  admm_chunk_warp<T, NR><<<blocks, kWarps * 32, smem, stream>>>(a);
+  return 0;
+}
+
+template <typename T, int NR>
+int launch_rows(const ChunkArgs<T>& a, cudaStream_t stream) {
+  constexpr int W = warps_per_block<NR>();
+  size_t smem;
+  const int e = rows_prepare<T, NR>(a.k, &smem);
+  if (e != 0) return e;
+  const int blocks = (a.B + W - 1) / W;
+  admm_chunk_warp<T, NR><<<blocks, W * 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int NR>
+int rows_occupancy_nr(int k, int* blocks) {
+  size_t smem;
+  const int e = rows_prepare<T, NR>(k, &smem);
+  if (e != 0) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, admm_chunk_warp<T, NR>, warps_per_block<NR>() * 32, smem);
+}
+
+template <typename T>
+int rows_occupancy(int k, int* blocks) {
+  if (k <= 32) return rows_occupancy_nr<T, 1>(k, blocks);
+  if (k <= 64) return rows_occupancy_nr<T, 2>(k, blocks);
+  return rows_occupancy_nr<T, 3>(k, blocks);
 }
 
 template <typename T>
@@ -470,7 +518,9 @@ int launch(void* const* p, T eps_b, T eps_f, int B, int k, int kb, int K,
   a.max_iter = max_iter;
   a.inc_gate = inc_gate;
   const cudaStream_t s = (cudaStream_t)stream;
-  return k <= 32 ? launch_rows<T, 1>(a, s) : launch_rows<T, 2>(a, s);
+  if (k <= 32) return launch_rows<T, 1>(a, s);
+  if (k <= 64) return launch_rows<T, 2>(a, s);
+  return launch_rows<T, 3>(a, s);
 }
 
 // --------------------------------------------------------------------------
@@ -495,19 +545,52 @@ int launch(void* const* p, T eps_b, T eps_f, int B, int k, int kb, int K,
 //     gate 2 (f64 engine): max |dx| over all rows < eps_b and over the
 //                          segment < eps_f
 // Bound: as for admm_chunk_f64, with n in place of k; the operator is the
-// full n x n (28.8 KB at Cassie's n = 60 in f64), so even an all-active
-// chunk of 25 iterations is bound by bytes (the operators), a straggler
-// chunk by the state's bytes. The times beside the bounds are in PERF.md.
+// full n x n (28.8 KB at Cassie's n = 60 in f64), so an all-active chunk
+// of 25 iterations is bound by bytes (the operators, 0.085 ms at B =
+// 8192), a straggler chunk by the state's bytes. Without contraction an
+// iteration issues 2 n^2 f64 operations (mul, add) per instance, which at
+// 64 FP64 lanes an SM take about as long as those bytes (0.088 ms): the
+// chunk comes near its bound only where the loads overlap the arithmetic.
+// The times beside the bounds are in PERF.md.
 //
-// Design: that of the two kernels above, one warp per instance, lane i
-// owns rows i and i + 32, the warp's operator in shared memory (read once
-// per chunk), the state and the per-row constants in registers,
-// convergence as a warp vote. One warp per block: at 28.8 KB of shared
-// memory a block, seven blocks share an SM. A cone row keeps both slacks
-// and both duals in the registers of the lane that owns the row; a cone
-// triple may straddle the two slots (ls % 32 in {30, 31}), so each lane
-// gathers its triple's three rows with from_row(), which reads any row
-// from either slot.
+// Design: one warp per instance, lane i owns rows i, i + 32 and i + 64
+// (NR = 1, 2, 3 slots for n <= 32, 64, 96); one instantiation per slot
+// count, n read at run time.
+//   * Operator: lane i holds F[j][row] for the first JR columns j of each
+//     row it owns in registers (compile-time indices); the other columns
+//     sit in the warp's shared memory, [j - JR][row] at a row stride of
+//     32 * NR, so every offset the unrolled mat-vec reads is a constant
+//     whatever n is. JR per NR (full_jr) is the largest that ptxas
+//     compiles without spills; the registers and the shared columns
+//     together set the instances an SM holds (admm_chunk_blocks_per_sm).
+//   * Operator load: a block holds W neighbouring instances (4, or 2
+//     where four operators would not fit in shared memory: n > 80) and
+//     copies their operators together with 8-byte cp.async, thread t for
+//     instance t % W, so the W words of one element come from one 32-byte
+//     sector: each sector crosses from L2 once per block, not W times.
+//     Every copy of a thread is issued before its one wait; the state
+//     loads while the shared columns are in flight. A block none of whose
+//     instances iterates loads nothing.
+//   * Mat-vec without shuffles: each iteration writes v to the warp's
+//     vector in shared memory (one __syncwarp) and every lane reads v[j]
+//     as a broadcast, two at a time. The j loop is unrolled in groups of
+//     8 whose loads issue ahead of their adds; only the ascending add
+//     chain stays serial. It has one branch, so the compiler schedules
+//     the loads across groups: the first 32 (NR - 1) + 16 columns run
+//     always, the last 16 only when n reaches them. Columns from n to the
+//     next multiple of 16 are padding (F = +0, v = -0): each adds -0,
+//     which is exact.
+//   * Projection: the cone triples (fx, fy, fz) go through a shared
+//     vector; a lane owns at most one cone row when nc <= 32 (every
+//     model) and projects once.
+//   * The last iteration's 2-norm terms go through shared vectors, summed
+//     in row order from 0 by lane 0; the max-norms by warp reduction.
+//   * State and per-row constants in registers; v lives in the shared
+//     vector and is written out from there. A cone row keeps both slacks
+//     and both duals. The convergence test is a warp vote (__all_sync) of
+//     every row's test; with eps > 0, max < eps <=> every row < eps.
+//   * Same arithmetic in the same order as the plain version, no FMA:
+//     bit-equal state, counters and max-norms.
 // --------------------------------------------------------------------------
 
 struct FullArgs {
@@ -554,37 +637,228 @@ struct FullArgs {
   int gate;
 };
 
+// Register columns of the full-layout operator per row-slot count (the
+// rest is in shared memory); multiples of 8, the mat-vec's group. Chosen
+// from the ptxas report: the largest with no spills and no stack frame
+// (40 at two slots and 24 at three spill).
 template <int NR>
-__global__ void __launch_bounds__(32) admm_chunk_full_warp(FullArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* Fs = reinterpret_cast<double*>(smem_raw);  // [j][i]
-  const int lane = threadIdx.x;
-  const int b = blockIdx.x;
-  const int B = a.B, n = a.n, nc = a.nc, ls = a.ls;
-  const int done_in = a.done_in[b];
-  const int itv_in = a.itv_in[b];
+__host__ __device__ constexpr int full_jr() {
+  return NR == 3 ? 16 : 32;
+}
 
-  // rows and the state: iterated below, or copied through by an idle warp
+// the columns the mat-vec runs at every n of the slot count; the last 16
+// run only when n reaches them
+template <int NR>
+__host__ __device__ constexpr int full_always() {
+  return 32 * NR - 16;
+}
+
+// the columns the mat-vec reads at n rows: n and its padding
+template <int NR>
+__host__ __device__ inline int full_cols(int n) {
+  const int c = (n + 15) / 16 * 16;
+  return c > full_always<NR>() ? c : full_always<NR>();
+}
+
+// doubles of one warp's operator region at the row stride 32 * NR: the
+// shared columns JR <= j < full_cols(n), or the register columns while
+// they are staged there, whichever is more
+template <int NR>
+__host__ __device__ inline int full_fsz(int n) {
+  constexpr int JR = full_jr<NR>();
+  const int shared = full_cols<NR>(n) - JR;
+  const int staged = JR < n ? JR : n;
+  return (shared > staged ? shared : staged) * 32 * NR;
+}
+
+// one warp's dynamic shared memory: four vectors of 32 * NR rows, then
+// the operator region
+template <int NR>
+size_t full_warp_bytes(int n) {
+  return (size_t)(4 * 32 * NR + full_fsz<NR>(n)) * sizeof(double);
+}
+
+// the dynamic shared memory a block may request on sm_90
+constexpr size_t kSmemOptin = 227 * 1024;
+
+// instances (warps) per block of the full-layout kernel: four, so that a
+// 32-byte sector of the operator serves one block, where their four
+// operators fit in a block's shared memory (every n <= 80); two above
+template <int NR>
+int full_warps(int n) {
+  return 4 * full_warp_bytes<NR>(n) <= kSmemOptin ? 4 : 2;
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the projection of a cone row's value t onto its cone, given the
+// cone's (fx, fy, fz), friction coefficient m, den = m * m + 1 and the
+// row's place in the triple: the plain version's operations in order
+__device__ __forceinline__ double cone_row(double t, double fx, double fy,
+                                           double fz, double m, double den,
+                                           int pos) {
+  const double norm = sqrt(fx * fx + fy * fy);
+  const bool inside = m * fz - norm >= 0.0;
+  const bool polar = fz + m * norm < 0.0;
+  const double tt = (m * norm + fz) / den;
+  const double safe = norm > 0.0 ? norm : 1.0;
+  const double sc = tt * m / safe;
+  const double surf = pos == 2 ? tt : sc * t;
+  return inside ? t : (polar ? 0.0 : surf);
+}
+
+// y[q] (+)= sum over the columns j in [J0, J1) of F[j][row q] * v[j], in
+// ascending j and groups of 8 whose loads issue ahead of their adds; the
+// first JR columns come from registers, the rest from the warp's shared
+// columns (Fl: this lane's row in column JR, row stride 32 * NR)
+template <int NR, int JR, int J0, int J1>
+__device__ __forceinline__ void full_matvec(double (&y)[NR],
+                                            const double (&fr)[NR][JR],
+                                            const double* Fl,
+                                            const double* vs) {
+  constexpr int G = 8;
+  static_assert(J0 % G == 0 && J1 % G == 0, "groups of 8 columns");
+#pragma unroll
+  for (int j0 = J0; j0 < J1; j0 += G) {
+    double vj[G], f[G][NR];
+#pragma unroll
+    for (int u = 0; u < G; u += 2) {
+      const double2 p = *reinterpret_cast<const double2*>(vs + j0 + u);
+      vj[u] = p.x;
+      vj[u + 1] = p.y;
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int j = j0 + u;
+#pragma unroll
+      for (int q = 0; q < NR; ++q)
+        f[u][q] = j < JR ? fr[q][j < JR ? j : 0]
+                         : Fl[(j - JR) * 32 * NR + 32 * q];
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        const double p = f[u][q] * vj[u];
+        y[q] = j0 + u == 0 ? p : y[q] + p;
+      }
+  }
+}
+
+// blockDim.x = 32 W, W = full_warps<NR>(n) instances a block (2 or 4)
+template <int NR>
+__global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
+  constexpr int JR = full_jr<NR>();
+  constexpr int ROWS = 32 * NR;
+  const int W = blockDim.x >> 5;
+  // the mat-vec runs the first H columns always, the rest when n > H
+  constexpr int H = full_always<NR>();
+  static_assert(JR % 8 == 0 && JR >= 8 && JR <= ROWS, "register columns");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int b0 = blockIdx.x * W;
+  const int b = b0 + warp;
+  const int B = a.B, n = a.n, nc = a.nc, ls = a.ls;
+  const int wsz = 4 * ROWS + full_fsz<NR>(n);
+  double* vs = reinterpret_cast<double*>(smem_raw) + warp * wsz;  // v
+  double* ts = vs + ROWS;  // seg(x) + mu_lam
+  double* ps = ts + ROWS;  // 2-norm terms
+  double* qs = ps + ROWS;
+  double* Fs = qs + ROWS;  // the operator region, [j][row], stride ROWS
+  const bool idle = b >= B || a.done_in[b] != 0 ||
+                    a.itv_in[b] >= a.max_iter || a.K < 1;
+
+  // The operator, read once for the chunk by the whole block: thread t
+  // copies rows t / W + 32 q of instance b0 + t % W, so W neighbouring
+  // threads read the W instances' words of one element from one 32-byte
+  // sector, and a warp's copy touches 32 / W sectors, not 32. The
+  // register columns are staged in each warp's operator region first,
+  // then the shared columns land there; every copy of a thread is issued
+  // before its wait.
+  const int d = tid & (W - 1);
+  const int pr = tid >> (W == 4 ? 2 : 1);
+  const int bd = b0 + d;
+  const bool load_d = bd < B && a.done_in[bd] == 0 &&
+                      a.itv_in[bd] < a.max_iter && a.K >= 1;
+  const bool any = __syncthreads_or(load_d) != 0;
+  double fr[NR][JR];
+  if (any) {
+    double* Fd = reinterpret_cast<double*>(smem_raw) + d * wsz + 4 * ROWS;
+    const size_t step = (size_t)n * B;               // one column
+    const double* col = a.F + bd + (size_t)pr * B;  // row pr, column 0
+    const int j1 = JR < n ? JR : n;
+    if (load_d)
+      for (int j = 0; j < j1; ++j, col += step)
+#pragma unroll
+        for (int q = 0; q < NR; ++q)
+          if (pr + 32 * q < n)
+            cp_async8(Fd + j * ROWS + pr + 32 * q, col + (size_t)32 * q * B);
+    cp_async_wait_all();
+    __syncthreads();
+    if (!idle) {
+#pragma unroll
+      for (int q = 0; q < NR; ++q)
+#pragma unroll
+        for (int j = 0; j < JR; ++j) {
+          const int r = lane + 32 * q;
+          fr[q][j] = (j < n && r < n) ? Fs[j * ROWS + r] : 0.0;
+        }
+    }
+    __syncthreads();
+    if (load_d)
+      for (int j = JR; j < n; ++j, col += step)
+#pragma unroll
+        for (int q = 0; q < NR; ++q)
+          if (pr + 32 * q < n)
+            cp_async8(Fd + (j - JR) * ROWS + pr + 32 * q,
+                      col + (size_t)32 * q * B);
+    // the mat-vec's padding: the shared columns from n to full_cols(n)
+    // hold +0 (the register columns past n already do)
+    if (!idle)
+      for (int j = n > JR ? n : JR; j < full_cols<NR>(n); ++j)
+#pragma unroll
+        for (int q = 0; q < NR; ++q) Fs[(j - JR) * ROWS + 32 * q + lane] = 0.0;
+  }
+
+  // rows and the state: iterated below, or copied through by an idle
+  // warp. Every slot but the last is full (n > 32 (NR - 1)), which the
+  // compiler sees through `valid`.
   int row[NR], cr[NR];
   bool valid[NR], cone[NR];
-  double x[NR], xb[NR], mux[NR], v[NR], lam[NR], mul[NR];
+  double x[NR], xb[NR], mux[NR], lam[NR], mul[NR];
+  const bool live = b < B;
 #pragma unroll
   for (int q = 0; q < NR; ++q) {
     row[q] = lane + 32 * q;
-    valid[q] = row[q] < n;
+    valid[q] = q < NR - 1 || row[q] < n;
     cr[q] = row[q] - ls;
     cone[q] = valid[q] && cr[q] >= 0 && cr[q] < nc;
     const size_t o = (size_t)row[q] * B + b;
     const size_t oc = (size_t)(cone[q] ? cr[q] : 0) * B + b;
-    x[q] = valid[q] ? a.x_in[o] : 0.0;
-    xb[q] = valid[q] ? a.xb_in[o] : 0.0;
-    mux[q] = valid[q] ? a.mux_in[o] : 0.0;
-    v[q] = valid[q] ? a.v_in[o] : 0.0;
-    lam[q] = cone[q] ? a.lam_in[oc] : 0.0;
-    mul[q] = cone[q] ? a.mul_in[oc] : 0.0;
+    x[q] = live && valid[q] ? a.x_in[o] : 0.0;
+    xb[q] = live && valid[q] ? a.xb_in[o] : 0.0;
+    mux[q] = live && valid[q] ? a.mux_in[o] : 0.0;
+    lam[q] = live && cone[q] ? a.lam_in[oc] : 0.0;
+    mul[q] = live && cone[q] ? a.mul_in[oc] : 0.0;
   }
+  if (any) {
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (!live) return;  // warp-uniform, after the block's last barrier
 
-  if (done_in != 0 || itv_in >= a.max_iter || a.K < 1) {
+  if (idle) {
 #pragma unroll
     for (int q = 0; q < NR; ++q) {
       if (valid[q]) {
@@ -592,7 +866,7 @@ __global__ void __launch_bounds__(32) admm_chunk_full_warp(FullArgs a) {
         a.x_out[o] = x[q];
         a.xb_out[o] = xb[q];
         a.mux_out[o] = mux[q];
-        a.v_out[o] = v[q];
+        a.v_out[o] = a.v_in[o];
       }
       if (cone[q]) {
         const size_t oc = (size_t)cr[q] * B + b;
@@ -601,9 +875,9 @@ __global__ void __launch_bounds__(32) admm_chunk_full_warp(FullArgs a) {
       }
     }
     if (lane == 0) {
-      a.done_out[b] = done_in;
+      a.done_out[b] = a.done_in[b];
       a.niter_out[b] = a.niter_in[b];
-      a.itv_out[b] = itv_in;
+      a.itv_out[b] = a.itv_in[b];
       a.xrn_out[b] = a.xrn_in[b];
       a.lrn_out[b] = a.lrn_in[b];
       a.prim_out[b] = a.prim_in[b];
@@ -614,9 +888,9 @@ __global__ void __launch_bounds__(32) admm_chunk_full_warp(FullArgs a) {
 
   const double rho = a.rho[b];
   // per-row constants; a cone row keeps its triple's first row c0, its
-  // place in the triple and the cone's friction coefficient
-  int c0[NR], pos[NR], fo[NR];
-  double xc[NR], lo[NR], hi[NR], mf[NR];
+  // place in the triple, the cone's friction coefficient m and m * m + 1
+  int c0[NR], pos[NR];
+  double xc[NR], lo[NR], hi[NR], mf[NR], den[NR];
 #pragma unroll
   for (int q = 0; q < NR; ++q) {
     const size_t o = (size_t)row[q] * B + b;
@@ -632,68 +906,82 @@ __global__ void __launch_bounds__(32) admm_chunk_full_warp(FullArgs a) {
       pos[q] = row[q] - c0[q];
       mf[q] = a.muf[(size_t)c * B + b];
     }
-    fo[q] = valid[q] ? row[q] : 0;
+    den[q] = mf[q] * mf[q] + 1.0;
+  }
+  // with nc <= 32 (every model) a lane owns at most one cone row, in
+  // slot cq, and projects once an iteration
+  int cq = -1, ncq = 0;
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    if (cone[q]) {
+      if (cq < 0) cq = q;
+      ++ncq;
+    }
   }
 
-  // the operator, read once for the chunk
-  for (int e = lane; e < n * n; e += 32) Fs[e] = a.F[(size_t)e * B + b];
-  __syncwarp();
-
   int niter = a.niter_in[b];
-  int itv = itv_in;
+  int itv = a.itv_in[b];
   int done = 0;
   for (int it = 0; it < a.K; ++it) {
-    double sp[NR], vn[NR], y[NR];
+    // v into the shared vector; rows >= n hold -0 (the mat-vec's padding)
 #pragma unroll
-    for (int q = 0; q < NR; ++q) {
-      sp[q] = cone[q] ? lam[q] : xb[q];
-      vn[q] = sp[q] - (cone[q] ? mul[q] : mux[q]);
-    }
+    for (int q = 0; q < NR; ++q)
+      vs[row[q]] = valid[q] ? (cone[q] ? lam[q] : xb[q]) -
+                                  (cone[q] ? mul[q] : mux[q])
+                            : -0.0;
+    __syncwarp();
 
-    // y = F^T v, accumulated over j in ascending order
-    const double v0 = __shfl_sync(kFull, vn[0], 0);
-#pragma unroll
-    for (int q = 0; q < NR; ++q) y[q] = Fs[fo[q]] * v0;
-    const int n1 = n < 32 ? n : 32;
-    for (int j = 1; j < n1; ++j) {
-      const double vj = __shfl_sync(kFull, vn[0], j);
-#pragma unroll
-      for (int q = 0; q < NR; ++q) y[q] = y[q] + Fs[j * n + fo[q]] * vj;
-    }
-    for (int j = 32; j < n; ++j) {
-      const double vj = __shfl_sync(kFull, vn[NR - 1], j - 32);
-#pragma unroll
-      for (int q = 0; q < NR; ++q) y[q] = y[q] + Fs[j * n + fo[q]] * vj;
-    }
+    // y = F^T v, over j ascending from F[0][i] v[0]: the first
+    // 32 (NR - 1) + 16 columns always, the last 16 only when n reaches
+    // them. A column j >= n in that range adds F = +0 times v = -0, that
+    // is -0, which leaves every y (+0 and -0 included) as it is.
+    double y[NR];
+    full_matvec<NR, JR, 0, H>(y, fr, Fs + lane, vs);
+    if (n > H) full_matvec<NR, JR, H, ROWS>(y, fr, Fs + lane, vs);
 
-    double xn[NR], tc[NR];
+    double xn[NR];
 #pragma unroll
     for (int q = 0; q < NR; ++q) {
       xn[q] = xc[q] + rho * y[q];
-      tc[q] = xn[q] + mul[q];
+      if (cone[q]) ts[row[q]] = xn[q] + mul[q];
     }
+    __syncwarp();
 
+    // projections: every row clips x + mu_x; a cone row projects its
+    // triple, gathered from the shared vector
     double xbn[NR], lamn[NR];
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      xbn[q] = tclip(xn[q] + mux[q], lo[q], hi[q]);
+      lamn[q] = 0.0;
+    }
+    if (ncq == 1) {
+      double t = 0.0, m = 0.0, dn = 1.0;
+      int cc = 0, pp = 0;
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        if (q == cq) {
+          t = xn[q] + mul[q];
+          m = mf[q];
+          dn = den[q];
+          cc = c0[q];
+          pp = pos[q];
+        }
+      }
+      const double l = cone_row(t, ts[cc], ts[cc + 1], ts[cc + 2], m, dn, pp);
+#pragma unroll
+      for (int q = 0; q < NR; ++q)
+        if (q == cq) lamn[q] = l;
+    } else if (ncq > 1) {
+#pragma unroll
+      for (int q = 0; q < NR; ++q)
+        if (cone[q])
+          lamn[q] = cone_row(xn[q] + mul[q], ts[c0[q]], ts[c0[q] + 1],
+                             ts[c0[q] + 2], mf[q], den[q], pos[q]);
+    }
     bool ok = true;
 #pragma unroll
     for (int q = 0; q < NR; ++q) {
-      // the cone triple of this row, gathered from whichever slots hold it
-      const double fx = from_row<NR>(tc, c0[q]);
-      const double fy = from_row<NR>(tc, c0[q] + 1);
-      const double fz = from_row<NR>(tc, c0[q] + 2);
-      xbn[q] = tclip(xn[q] + mux[q], lo[q], hi[q]);
-      lamn[q] = 0.0;
-      if (cone[q]) {
-        const double m = mf[q];
-        const double norm = sqrt(fx * fx + fy * fy);
-        const bool inside = m * fz - norm >= 0.0;
-        const bool polar = fz + m * norm < 0.0;
-        const double tt = (m * norm + fz) / (m * m + 1.0);
-        const double safe = norm > 0.0 ? norm : 1.0;
-        const double sc = tt * m / safe;
-        const double surf = pos[q] == 2 ? tt : sc * tc[q];
-        lamn[q] = inside ? tc[q] : (polar ? 0.0 : surf);
-      }
       if (valid[q]) {
         const double dx = tabs(xn[q] - x[q]);
         ok = ok && tabs(xn[q] - xbn[q]) < a.eps_b;
@@ -712,25 +1000,29 @@ __global__ void __launch_bounds__(32) admm_chunk_full_warp(FullArgs a) {
 
     if (conv || it + 1 == a.K || itv + 1 >= a.max_iter) {
       // the instance's last iteration in this chunk: its residual norms
-      double bx = 0.0, cx = 0.0, pq[NR], dq[NR];
+      double bx = 0.0, cx = 0.0;
 #pragma unroll
       for (int q = 0; q < NR; ++q) {
         const double sn = cone[q] ? lamn[q] : xbn[q];
+        const double sp = cone[q] ? lam[q] : xb[q];
         if (valid[q]) bx = tmax(bx, tabs(xn[q] - xbn[q]));
         if (cone[q]) cx = tmax(cx, tabs(xn[q] - lamn[q]));
         const double dp = xn[q] - sn;
-        const double dc = sn - sp[q];
-        pq[q] = valid[q] ? dp * dp : 0.0;
-        dq[q] = valid[q] ? dc * dc : 0.0;
+        const double dc = sn - sp;
+        ps[row[q]] = valid[q] ? dp * dp : 0.0;
+        qs[row[q]] = valid[q] ? dc * dc : 0.0;
       }
       bx = warp_max(bx);
       cx = warp_max(cx);
-      double pp = 0.0, dd = 0.0;
-      for (int rr = 0; rr < n; ++rr) {
-        pp = pp + from_row<NR>(pq, rr);
-        dd = dd + from_row<NR>(dq, rr);
-      }
+      __syncwarp();
       if (lane == 0) {
+        // rows >= n hold +0, which leaves a sum of squares as it is
+        double pp = 0.0, dd = 0.0;
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          pp = pp + ps[rr];
+          dd = dd + qs[rr];
+        }
         a.xrn_out[b] = bx;
         a.lrn_out[b] = cx;
         a.prim_out[b] = sqrt(pp);
@@ -747,7 +1039,6 @@ __global__ void __launch_bounds__(32) admm_chunk_full_warp(FullArgs a) {
       }
       x[q] = xn[q];
       xb[q] = xbn[q];
-      v[q] = vn[q];
     }
     if (conv) {
       niter = itv;
@@ -757,6 +1048,8 @@ __global__ void __launch_bounds__(32) admm_chunk_full_warp(FullArgs a) {
     if (done != 0 || itv >= a.max_iter) break;
   }
 
+  // v is the last iteration's, still in the shared vector (each lane
+  // reads the rows it wrote)
 #pragma unroll
   for (int q = 0; q < NR; ++q) {
     if (valid[q]) {
@@ -764,7 +1057,7 @@ __global__ void __launch_bounds__(32) admm_chunk_full_warp(FullArgs a) {
       a.x_out[o] = x[q];
       a.xb_out[o] = xb[q];
       a.mux_out[o] = mux[q];
-      a.v_out[o] = v[q];
+      a.v_out[o] = vs[row[q]];
     }
     if (cone[q]) {
       const size_t oc = (size_t)cr[q] * B + b;
@@ -777,6 +1070,46 @@ __global__ void __launch_bounds__(32) admm_chunk_full_warp(FullArgs a) {
     a.niter_out[b] = niter;
     a.itv_out[b] = itv;
   }
+}
+
+// the block's shared memory for n rows, above the default 48 KB limit
+// only after the attribute is raised
+template <int NR>
+int full_prepare(int n, size_t* smem) {
+  *smem = full_warps<NR>(n) * full_warp_bytes<NR>(n);
+  if (*smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        admm_chunk_full_warp<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)*smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+template <int NR>
+int launch_full_rows(const FullArgs& a, cudaStream_t s) {
+  size_t smem;
+  const int e = full_prepare<NR>(a.n, &smem);
+  if (e != 0) return e;
+  const int W = full_warps<NR>(a.n);
+  const int blocks = (a.B + W - 1) / W;
+  admm_chunk_full_warp<NR><<<blocks, W * 32, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int NR>
+int full_occupancy_nr(int n, int* blocks) {
+  size_t smem;
+  const int e = full_prepare<NR>(n, &smem);
+  if (e != 0) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, admm_chunk_full_warp<NR>, full_warps<NR>(n) * 32, smem);
+}
+
+int full_occupancy(int n, int* blocks) {
+  if (n <= 32) return full_occupancy_nr<1>(n, blocks);
+  if (n <= 64) return full_occupancy_nr<2>(n, blocks);
+  return full_occupancy_nr<3>(n, blocks);
 }
 
 int launch_full(void* const* p, double eps_b, double eps_f, int B, int n,
@@ -827,12 +1160,9 @@ int launch_full(void* const* p, double eps_b, double eps_f, int B, int n,
   a.max_iter = max_iter;
   a.gate = gate;
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)n * n * sizeof(double);  // <= 32 KB
-  if (n <= 32)
-    admm_chunk_full_warp<1><<<B, 32, smem, s>>>(a);
-  else
-    admm_chunk_full_warp<2><<<B, 32, smem, s>>>(a);
-  return (int)cudaGetLastError();
+  if (n <= 32) return launch_full_rows<1>(a, s);
+  if (n <= 64) return launch_full_rows<2>(a, s);
+  return launch_full_rows<3>(a, s);
 }
 
 }  // namespace
@@ -861,4 +1191,18 @@ extern "C" int admm_chunk_full_f64(void* const* ptrs, double eps_b,
                                    void* stream) {
   return launch_full(ptrs, eps_b, eps_f, B, n, nc, ls, K, max_iter, gate,
                      stream);
+}
+
+// Resident blocks per SM of the full-layout kernel at n rows and of the
+// reduced kernels at k rows (kernel 0: admm_chunk_f64, 1: admm_chunk_f32,
+// 2: admm_chunk_full_f64; a block holds four instances, and one for the
+// reduced kernels above 64 rows, two for the full layout above 80), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+// Returns the cudaError_t.
+extern "C" int admm_chunk_blocks_per_sm(int kernel, int rows, int* blocks) {
+  if (rows < 1 || rows > KMAX || kernel < 0 || kernel > 2)
+    return (int)cudaErrorInvalidValue;
+  if (kernel == 2) return full_occupancy(rows, blocks);
+  return kernel == 0 ? rows_occupancy<double>(rows, blocks)
+                     : rows_occupancy<float>(rows, blocks);
 }

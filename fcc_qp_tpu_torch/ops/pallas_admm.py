@@ -33,7 +33,11 @@ Differences from the Pallas kernels, by design:
 * the residual norms of an instance that does no iteration in the chunk
   are carried through from the inputs (the XLA chunk bodies' semantics;
   the Pallas kernels restart them from zero in every chunk);
-* any batch size works: no padding to a 128-instance tile.
+* any batch size works: no padding to a 128-instance tile;
+* at most `MAX_ROWS` = 96 rows (k, or n on the full layout): three row
+  slots of a warp's 32 lanes, which covers every model of `models/osc.py`
+  (the humanoid's n = 76 is the largest). The Pallas kernels unroll over
+  any row count; a CUDA launch above the limit raises (`check_rows`).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import subprocess
 import time
 
@@ -60,6 +65,18 @@ NVCC_FLAGS = (
 _lib = None
 build_info: dict = {}
 
+# rows a chunk kernel takes on the card: three slots of 32 lanes
+MAX_ROWS = 96
+
+
+def check_rows(rows: int, what: str) -> None:
+    """Raise `ValueError` unless ``rows`` (k constrained rows, or n on
+    the full layout) fits the CUDA kernels' row slots."""
+    if not 1 <= rows <= MAX_ROWS:
+        raise ValueError(
+            f"{what}={rows}: the CUDA chunk kernels take 1 to {MAX_ROWS} "
+            f"rows ({MAX_ROWS // 32} slots of 32 lanes)")
+
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -69,16 +86,18 @@ def _nvcc() -> str:
 
 def build_kernels() -> ctypes.CDLL:
     """Compile `csrc/admm_chunk.cu` (once per source content) into
-    ``_build/`` and load it. Records the compile seconds and the
-    compiler's register/spill report in `build_info`."""
+    ``_build/`` and load it. Records the compile seconds, the compiler's
+    log (kept beside the library, so a cached build reports it too) and
+    its register/spill report per instantiation in `build_info`."""
     global _lib
     if _lib is not None:
         return _lib
     src = _SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     so = _BUILD / f"libadmm_chunk_{tag}.so"
+    log = so.with_suffix(".log")
     t0 = time.perf_counter()
-    if not so.exists():
+    if not (so.exists() and log.exists()):
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run(
@@ -89,10 +108,14 @@ def build_kernels() -> ctypes.CDLL:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
             )
+        tmp_log = so.with_suffix(f".{os.getpid()}.log.tmp")
+        tmp_log.write_text(proc.stderr)
+        os.replace(tmp_log, log)
         os.replace(tmp, so)
-        build_info["log"] = proc.stderr
     build_info["seconds"] = time.perf_counter() - t0
     build_info["library"] = str(so)
+    build_info["log"] = log.read_text()
+    build_info["ptxas"] = ptxas_report(build_info["log"])
     lib = ctypes.CDLL(str(so))
     common = [ctypes.c_void_p]
     lib.admm_chunk_f64.argtypes = common + [
@@ -113,8 +136,52 @@ def build_kernels() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.admm_chunk_full_f64.restype = ctypes.c_int
+    lib.admm_chunk_blocks_per_sm.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.admm_chunk_blocks_per_sm.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def ptxas_report(log: str) -> dict:
+    """``{kernel instantiation: (registers, stack frame bytes, spill
+    store bytes, spill load bytes)}`` from an ``nvcc -Xptxas -v`` log,
+    named as in the source (``admm_chunk_warp<double, 3>``,
+    ``admm_chunk_full_warp<2>``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"(admm_chunk_(?:full_)?warp)I([df]?)((?:Li\d+E)+)",
+                          m.group(1))
+            name = m.group(1) if k is None else (
+                f"{k.group(1)}<"
+                + {"d": "double, ", "f": "float, ", "": ""}[k.group(2)]
+                + ", ".join(re.findall(r"Li(\d+)E", k.group(3))) + ">")
+            out[name] = [0, 0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name][1:] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def blocks_per_sm(kernel: str, rows: int) -> int:
+    """Resident blocks per SM of ``kernel`` (a name in `KERNELS`) at
+    ``rows`` rows, from the CUDA occupancy calculator. A block holds four
+    instances; one (reduced kernels) above 64 rows, two (full layout) above
+    80."""
+    names = [fn.__name__ for fn in KERNELS]
+    out = ctypes.c_int(0)
+    err = build_kernels().admm_chunk_blocks_per_sm(
+        names.index(kernel), rows, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {err} in the occupancy query")
+    return out.value
 
 
 # --------------------------------------------------------------------------
@@ -314,8 +381,9 @@ def _launch(fn_name, dtype, args, kb, K, max_iter, inc_gate):
      x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual, weights) = args
     k, B = x.shape
     nc = k - kb
-    if not (0 <= kb <= k and nc % 3 == 0 and 1 <= k <= 64):
-        raise ValueError(f"unsupported split k={k}, kb={kb} (k <= 64)")
+    check_rows(k, "k")
+    if not (0 <= kb <= k and nc % 3 == 0):
+        raise ValueError(f"unsupported split k={k}, kb={kb}")
     dev = x.device
     i32 = torch.int32
     done_i = done.to(i32).contiguous()
@@ -447,7 +515,7 @@ def admm_chunk_full_f64(
     mu_lam (nc, B), the cone segment at rows ``[ls, ls + nc)``; done (B,)
     bool; n_iter / itv (B,) int32; xrn / lrn / prim / dual (B,) carried
     for idle instances. ``gate``: `GATE_OFF`, `GATE_SPLIT` or `GATE_ALL`.
-    n <= 64; nc = 0 is allowed.
+    n <= `MAX_ROWS`; nc = 0 is allowed.
 
     Returns ``(x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
     xrn, lrn, prim, dual)``. CPU tensors take
@@ -462,11 +530,11 @@ def admm_chunk_full_f64(
                                          max_iter=max_iter, gate=gate)
     n, B = x.shape
     nc = lam_bar.shape[0]
-    if not (1 <= n <= 64 and nc % 3 == 0 and 0 <= ls and ls + nc <= n
+    check_rows(n, "n")
+    if not (nc % 3 == 0 and 0 <= ls and ls + nc <= n
             and gate in (GATE_OFF, GATE_SPLIT, GATE_ALL)):
         raise ValueError(
-            f"unsupported layout n={n}, nc={nc}, ls={ls}, gate={gate} "
-            "(n <= 64)")
+            f"unsupported layout n={n}, nc={nc}, ls={ls}, gate={gate}")
     dev = x.device
     f64, i32 = torch.float64, torch.int32
     done_i = done.to(i32).contiguous()

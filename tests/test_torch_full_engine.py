@@ -7,13 +7,20 @@ package on the CPU.
   layout the full engine calls it in (Cassie, n = 60, the cone segment
   at rows 38-49, B = 128): counters equal, state within 1e-10 (the
   Pallas kernel is double-single), residuals where the instance
-  iterated (Pallas restarts them each chunk; ROADMAP.md queue C).
+  iterated (Pallas restarts them each chunk; ROADMAP.md queue C). The
+  same at the humanoid's layout (n = 76, the cone segment at rows 52-75,
+  32 instances tiled to one 128-instance Pallas tile), which takes the
+  CUDA kernel's third row slot on the card.
+* The CUDA wrappers' row limit: 96 rows (k, or n on the full layout)
+  pass `check_rows`, 97 raise.
 * `solve_batched_ds` on the full engine (the package defaults' path)
   against the JAX package's, at `tests/test_ds_engine.py`'s options and
   batch (exact presolve, with and without adaptive rho: the JAX programs
   that file compiles), at the README's adaptive-rho example (operator
   presolve) and at the package defaults: n_iter and status equal, |dz|
-  < 1e-4 (the bar of `tests/test_ds_engine.py`'s Pallas-vs-XLA test).
+  < 1e-4 (the bar of `tests/test_ds_engine.py`'s Pallas-vs-XLA test);
+  and on two humanoid instances at those options with rho = 0.01, where
+  both converge.
 * The reduced path's remaining classes: the f64 Schur factor
   (``kkt_factor='ds'``), exact presolve and ``splitting='full'`` in one
   solve of a problem without cones (nc = 0), and a problem without any
@@ -31,7 +38,7 @@ from fcc_qp_tpu import ProblemShape as JShape
 from fcc_qp_tpu.core.ds_engine import _split64
 from fcc_qp_tpu.core.ds_engine import solve_batched_ds as jsolve
 from fcc_qp_tpu.core.ds_engine import to_ds_batch as jto
-from fcc_qp_tpu.models.osc import (CASSIE, generate_osc_batch,
+from fcc_qp_tpu.models.osc import (CASSIE, HUMANOID, generate_osc_batch,
                                    generate_osc_sequence)
 from fcc_qp_tpu.ops import ds
 from fcc_qp_tpu.ops.pallas_admm import admm_chunk_pallas
@@ -142,6 +149,96 @@ def test_full_chunk_matches_pallas(chunk_state, gate):
                                   state[9].numpy()[~act])
 
 
+# the humanoid's full layout: n = 76, the cone segment at rows 52-75
+HUMANOID_SHAPE = (76, 41, 24, 52)
+# `OPTS` at a rho the humanoid's raw data converges at (at rho = 1 every
+# instance stops at the 300-iteration cap)
+HUMANOID_OPTS = dict(OPTS, rho=0.01)
+B_HUM, K_HUM, MAX_ITER_HUM = 32, 16, 4000
+# plain-version iterations before the compared chunk, per gate: the
+# batch's first instances converge after 36 (no gate) and 1617 (gate)
+# iterations. The warm-up runs on B_HUM instances; the compared chunk on
+# four copies of them, one Pallas tile of 128, each copy frozen and
+# capped at other instances
+WARMUP_HUM = {tk.GATE_OFF: 30, tk.GATE_SPLIT: 1610}
+
+
+@pytest.fixture(scope="module")
+def humanoid_chunk_state():
+    """The full engine's prepared operator and initial state for a
+    humanoid batch."""
+    qp = teng.to_ds_batch(
+        stack_qp_dicts(generate_osc_batch(HUMANOID, B_HUM, seed=0)),
+        device="cpu")
+    prep = teng._prepare_full(qp, None, T.ProblemShape(*HUMANOID_SHAPE),
+                              T.FCCQPOptions(**OPTS), False)
+    x0 = prep.x_init
+    zb = torch.zeros(B_HUM, dtype=torch.float64)
+    const = (prep.Fj, prep.x_const, qp.lb, qp.ub, qp.friction_coeffs,
+             prep.rho0.double())
+    state = (x0, x0.clone(), x0[52:76].contiguous(), prep.mu_x0,
+             prep.mu_lam0, x0 - prep.mu_x0,
+             torch.zeros(B_HUM, dtype=torch.bool),
+             torch.full((B_HUM,), MAX_ITER_HUM, dtype=torch.int32),
+             torch.zeros(B_HUM, dtype=torch.int32), zb, zb, zb, zb)
+    return const, state
+
+
+@pytest.mark.parametrize("gate", [tk.GATE_OFF, tk.GATE_SPLIT])
+def test_full_chunk_matches_pallas_humanoid(humanoid_chunk_state, gate):
+    """As `test_full_chunk_matches_pallas`, at the humanoid's n = 76
+    (ls = 52, nc = 24): the CUDA kernel's third row slot on the card."""
+    const, state = humanoid_chunk_state
+    ls = HUMANOID_SHAPE[3]
+    state = tk.admm_chunk_full_f64_plain(
+        *const, EPS, EPS, *state, ls=ls, K=WARMUP_HUM[gate],
+        max_iter=MAX_ITER_HUM, gate=gate)
+    tile = lambda a: torch.cat([a] * 4, dim=-1).contiguous()
+    const = tuple(tile(a) for a in const)
+    state = [tile(a) for a in state]
+    state[6][5::9] = True
+    state[8] = state[8].clone()
+    state[8][4::13] = MAX_ITER_HUM - 5
+    got = tk.admm_chunk_full_f64_plain(
+        *const, EPS, EPS, *state, ls=ls, K=K_HUM, max_iter=MAX_ITER_HUM,
+        gate=gate)
+    f = lambda a: _split64(a.numpy())
+    ref = admm_chunk_pallas(
+        *(f(a) for a in const[:5]), jnp.asarray(const[5].numpy()), EPS, EPS,
+        *(f(a) for a in state[:6]), jnp.asarray(state[6].numpy()),
+        jnp.asarray(state[7].numpy()), jnp.asarray(state[8].numpy()),
+        shape=JShape(*HUMANOID_SHAPE), K=K_HUM, max_iter=MAX_ITER_HUM,
+        interpret=True, inc_gate=gate == tk.GATE_SPLIT,
+    )
+    for i in (6, 7, 8):       # done, n_iter, itv
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(ref[i]))
+    assert (got[6].numpy() & ~state[6].numpy()).any()
+    for i in range(6):        # x, x_bar, lam_bar, mu_x, mu_lam, v
+        np.testing.assert_allclose(got[i].numpy(),
+                                   np.asarray(ds.to_f64(ref[i])),
+                                   rtol=0, atol=1e-10)
+    act = got[8].numpy() > state[8].numpy()
+    assert act.sum() > 2 * B_HUM and (~act).any()
+    for i in range(9, 13):    # xrn, lrn, prim, dual
+        np.testing.assert_allclose(got[i].numpy()[act],
+                                   np.asarray(ref[i], np.float64)[act],
+                                   rtol=1e-5, atol=1e-12)
+    np.testing.assert_array_equal(got[9].numpy()[~act],
+                                  state[9].numpy()[~act])
+
+
+@pytest.mark.parametrize("rows", [1, 76, 96, 97, 0])
+def test_kernel_row_limit(rows):
+    """The CUDA wrappers take 1 to 96 rows (k on the reduced path, n on
+    the full layout) and raise outside, naming the limit."""
+    assert tk.MAX_ROWS == 96
+    if 1 <= rows <= 96:
+        tk.check_rows(rows, "n")
+    else:
+        with pytest.raises(ValueError, match="1 to 96 rows"):
+            tk.check_rows(rows, "k")
+
+
 def _full_bars(jsol, tsol):
     np.testing.assert_array_equal(_d(tsol, "solve_status"),
                                   _d(jsol, "solve_status"))
@@ -160,6 +257,17 @@ def test_full_engine_matches_jax(cassie8, kw):
         assert (_d(tsol, "solve_status") == 0).all()
         assert _d(tsol, "admm_residual_bounds").max() < 1e-6
         assert _d(tsol, "admm_residual_friction_cone").max() < 1e-6
+
+
+def test_full_engine_matches_jax_humanoid():
+    """The full engine at the humanoid's n = 76 (the CUDA kernels' third
+    row slot) against the JAX package's, two instances at
+    `HUMANOID_OPTS`; both converge. The JAX program's compile is most of
+    the cost, so the batch is small."""
+    st = stack_qp_dicts(generate_osc_batch(HUMANOID, 2, seed=0))
+    jsol, tsol = _solve_both(st, HUMANOID_SHAPE, HUMANOID_OPTS)
+    _full_bars(jsol, tsol)
+    assert (_d(tsol, "solve_status") == 0).all()
 
 
 def test_full_engine_warm_start_and_stages(cassie8):
