@@ -7,7 +7,7 @@ from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
 (any failure exits non-zero, and nothing is caught):
 
-1. Build the three ADMM chunk kernels from `fcc_qp_tpu_torch/csrc`
+1. Build the four ADMM chunk kernels from `fcc_qp_tpu_torch/csrc`
    (nvcc, sm_90a) and print the build seconds, the compiler's register
    report (kept beside a cached build; it must name every instantiation
    and show no stack frame and no spills in any; registers per
@@ -82,18 +82,47 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    the drop-in `FCCQP(76, 41, 24, 52)` on the f64 engine over a 20-step
    walking log at `HUMANOID_DROPIN_OPTS` (statuses within two of the JAX
    package's, the drop-in step checks); the reduced two-phase path with
-   ``splitting="full"`` (both reduced kernels at k = 76). Then the
+   ``splitting="full"`` (both reduced kernels at k = 76; a kSuccess share
+   at least the JAX package's on the same 1024 less 1%). Then the
    full-layout kernel on the full engine's first chunk and both reduced
    kernels on the reduced path's first chunk against their plain
    versions, timed with bounds (``*_n76``, ``*_k76`` keys), and each
    kernel's resident blocks per SM.
-10. One JSON line with a record per kernel (the first chunk's numbers
+10. Host IO (`utils.io`): phase 5's 65536-step walking log written as a
+   packed ``.fqlog`` into the gitignored ``test_data/``, reloaded bit for
+   bit (write and load seconds printed) and removed; the replay's final
+   `WarmStartDS` and a parity-engine `WarmStart` saved and reloaded bit
+   for bit on the card.
+11. Over-relaxation, alpha = 1.6: each kernel against its plain version
+   bit for bit on an all-active first chunk (``*_alpha`` keys); a cold
+   Cassie solve at the bench flags and one at FULL_OPTS, each held to the
+   JAX package's kSuccess share on the first 512 less 1%.
+12. Adaptive rho on the reduced path (the bench flags with
+   ``bench.py --adaptive-rho``): held to the JAX share less 1%; its
+   operator rebuilds.
+13. The batch-level engine `solve_batched_fast` at B = 8192 with adaptive
+   rho (`FAST_OPTS`) and with alpha = 1.6 (`FAST_ALPHA_OPTS`): JAX shares
+   less 1%, rebuilds, time per solve.
+14. The parity engine on f32 data (``bench.py --engine f32``) at B = 8192:
+   the JAX f32 engine's share less 1%, and the f32 full-layout kernel
+   (`admm_chunk_full_f32`) against its plain version bit for bit on its
+   first and last chunks.
+15. `FCCQPServer` over a 64-step walking log at depth 1, 2, 4 and 8 on
+   both engines: equal to the serial `FCCQP` loop (statuses, |dz| <= 1e-9
+   ds / 1e-8 f64); ms per result p50 / p95 and results/s per depth.
+16. The sharded solves (`parallel`) over [cuda:0] and over two shards on
+   the one card at B = 8192 and 8191, both engines at `SHARD_OPTS`: equal
+   to the unsharded solve (n_iter, statuses, |dz| <= 1e-8 ds / 1e-10
+   f64) with equal summary aggregates; then `parallel.scaling_bench`
+   over one and two shards at the bench flags.
+17. One JSON line with a record per kernel (the first chunk's numbers
    under the plain keys, the straggler chunk's under ``*_tail``, the
    humanoid's under ``*_k47`` / ``*_k76`` / ``*_n76``, the warm step's
-   under ``*_warm``, the drop-in chunk's under ``*_b1``; ``ms_idle`` is
-   a launch on the straggler inputs with every instance done;
-   ``launches`` sums every path's count, and ``launches_<path>`` splits
-   it), the `nvidia-smi` line, and the final JSON status line.
+   under ``*_warm``, the drop-in chunk's under ``*_b1``, alpha = 1.6's
+   under ``*_alpha``; ``ms_idle`` is a launch on the straggler inputs
+   with every instance done; ``launches`` sums every path's count, and
+   ``launches_<path>`` splits it), the `nvidia-smi` line, and the final
+   JSON status line.
 
 Also printed: the bench solve's host seconds per chunk (the approach and
 endgame stage seconds over their launches), beside the kernels' own
@@ -215,12 +244,14 @@ def recorded_solve(engine, solve):
     return out, rec
 
 
-# the kernel instantiations of the library: both reduced kernels and the
-# full layout, one per row-slot count
+# the kernel instantiations of the library, one per row-slot count: both
+# reduced kernels with and without over-relaxation, and the full layout
+# (both iterations in one kernel) in f64 and f32
 INSTANTIATIONS = tuple(
-    [f"admm_chunk_warp<{t}, {nr}>" for t in ("double", "float")
-     for nr in (1, 2, 3)]
-    + [f"admm_chunk_full_warp<{nr}>" for nr in (1, 2, 3)])
+    [f"admm_chunk_warp<{t}, {nr}, {relax}>" for t in ("double", "float")
+     for nr in (1, 2, 3) for relax in ("false", "true")]
+    + [f"admm_chunk_full_warp<{t}, {nr}>" for t in ("double", "float")
+       for nr in (1, 2, 3)])
 
 
 def check_ptxas(report: dict) -> None:
@@ -285,9 +316,10 @@ def chunk_bound(args, kw, out, prec):
                 active=active, iters=iters, k=k, B=Bn)
 
 
-def compare(name, case, kernel, plain, args, kw, prec):
+def compare(name, case, kernel, plain, args, kw, prec, exact=False):
     """Kernel vs plain version on the same inputs: counters equal, state
-    within the tolerance; both timed. Returns a record."""
+    within the tolerance (``exact``: the state and the max-norms bit for
+    bit); both timed. Returns a record."""
     import torch
 
     out_k = kernel(*args, **kw)
@@ -299,7 +331,10 @@ def compare(name, case, kernel, plain, args, kw, prec):
     tol = 1e-6 if prec == "f32" else 1e-12
     max_err = 0.0
     for n, a, b in zip(names, out_k, out_p):
-        if n in ("done", "n_iter", "itv"):
+        if n in ("done", "n_iter", "itv") or (
+                exact and n not in ("prim", "dual")):
+            if a.is_floating_point():
+                max_err = max(max_err, float((a - b).abs().max()))
             check(torch.equal(a, b),
                   f"{name} [{case}]: {n} differs from the plain version")
         elif n in ("x", "s", "mu", "v"):
@@ -321,7 +356,9 @@ def compare(name, case, kernel, plain, args, kw, prec):
         f"kernel {ms:.6f} ms (host issue {issue_ms:.6f} ms per call), "
         f"plain {plain_ms:.6f} ms, bound {bound['bound_ms']:.6f} ms "
         f"({bound['bound_by']}); F "
-        f"{Fj.numel() * Fj.element_size() / 1e6:.1f} MB")
+        f"{Fj.numel() * Fj.element_size() / 1e6:.1f} MB"
+        + (f"; alpha {kw['alpha']}" if "alpha" in kw else "")
+        + ("; bit for bit" if exact else ""))
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 longest=longest, **bound)
 
@@ -424,11 +461,11 @@ def replay_phase(engine, bench):
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, _ = replay()
+        out, ws = replay()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if sols is None:
-            sols = out
+            sols, final_warm = out, ws
             launches = {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
     wall = sorted(walls)[1]
     stages = {}
@@ -535,9 +572,34 @@ def replay_phase(engine, bench):
 
     # a recorded replay (not counted) keeps each kernel's last warm chunk
     _, rec = recorded_solve(engine, replay)
-    return launches, rec
+    return launches, rec, stacked, final_warm
 
 
+# the JAX bench's flags (bench.py:191-200) for the cold batch and the
+# replay; the polish's Newton steps are the model's
+BENCH_OPTS = dict(
+    max_iter=3000, rho=0.05, eps_fcone=1e-6, eps_bound=1e-6,
+    presolve="operator", scaling=True, splitting="constrained",
+    kkt_refine_steps=1, kkt_factor="hybrid", lazy_exact=True,
+    polish=True, polish_rounds=4, adaptive_rho=False, alpha=1.0,
+)
+# over-relaxation as OSQP sets it (alpha = 1.6), and bench.py
+# --adaptive-rho (interval 100, one adaptation; bench.py:192-194)
+ALPHA = 1.6
+ADAPTIVE = dict(adaptive_rho=True, adaptive_rho_interval=100,
+                adaptive_rho_max_adaptations=1)
+# the batch-level engine (solve_batched_fast) at the options of the JAX
+# package's own tests (tests/test_batched_fast.py:11, :78), and with
+# alpha = 1.6 at rho = 0.1, where over-relaxation and one adaptation both
+# act (at rho = 1 and alpha = 1.6 nothing adapts, in both packages)
+FAST_OPTS = dict(max_iter=2000, rho=1.0, eps_fcone=1e-6, eps_bound=1e-6,
+                 adaptive_rho=True, adaptive_rho_interval=50)
+FAST_ALPHA_OPTS = dict(FAST_OPTS, alpha=ALPHA, rho=0.1)
+# bench.py --engine f32: the parity engine on f32 data with the bench's
+# tolerances and operator presolve, no adaptation, scaling, constrained
+# splitting or polish (bench.py:206-210)
+F32_OPTS = dict(max_iter=3000, rho=0.05, eps_fcone=1e-6, eps_bound=1e-6,
+                presolve="operator")
 # the full-splitting engine's options of the JAX package's own tests
 # (tests/test_ds_engine.py:15,46): the package defaults' path, exact
 # presolve, adaptive rho
@@ -581,6 +643,12 @@ HUMANOID_DROPIN_OPTS = dict(rho=0.01, eps_fcone=1e-6, eps_bound=1e-6,
 # the statuses of that loop in the JAX package on the CPU: (kSuccess,
 # kMaxIterations)
 HUMANOID_DROPIN_JAX_STATUSES = (20, 0)
+# the reduced two-phase path with splitting="full" on the same 1024
+# humanoid instances: the JAX package's kSuccess share on the CPU
+# (exp_full_reference.py, section humanoid_reduced1024; on the first 64
+# the port's plain versions give the JAX statuses and n_iter instance for
+# instance, 40 of 64); the card must reach it less 1%
+HUMANOID_REDUCED_JAX_SHARE_1024 = 558 / 1024
 FULL_NAMES = ("x", "x_bar", "lam_bar", "mu_x", "mu_lam", "v", "done",
               "n_iter", "itv", "xrn", "lrn", "prim", "dual")
 
@@ -589,30 +657,36 @@ def full_bound(args, kw, out):
     """`chunk_bound` for the full-layout chunk: bytes of the operator and
     per-instance data of the instances that iterate plus every
     instance's state in and out; (2n^2 + 16n + 12 ncones) flops per
-    instance-iteration run, against the FP64 peak."""
+    instance-iteration run, against the FP64 or FP32 peak (the inputs'
+    precision)."""
     n, Bn = args[8].shape
     nc = args[10].shape[0]
     ncones = nc // 3
     itv_in = args[16]
+    word = args[8].element_size()
     active = int((out[8] > itv_in).sum())
     iters = int((out[8] - itv_in).sum())
-    per_active = (n * n + 3 * n + ncones + 1) * 8
-    state = (4 * n + 2 * nc + 4) * 8 + 3 * 4
+    per_active = (n * n + 3 * n + ncones + 1) * word
+    state = (4 * n + 2 * nc + 4) * word + 3 * 4
     nbytes = active * per_active + 2 * Bn * state
     flops = iters * (2 * n * n + 16 * n + 12 * ncones)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS["f64"]
+    t_ops = flops / PEAK_FLOPS["f64" if word == 8 else "f32"]
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 active=active, iters=iters, n=n, B=Bn)
 
 
 def compare_full(case, kernel, plain, args, kw, time_it=True):
-    """`admm_chunk_full_f64` against its plain version on the same inputs:
-    the state, the counters and the max-norms bit for bit, the 2-norms
-    (sums whose order PyTorch's reduction picks) to 1e-12 relative."""
+    """The full-layout kernel (`admm_chunk_full_f64`, or
+    `admm_chunk_full_f32` on f32 inputs) against its plain version on the
+    same inputs: the state, the counters and the max-norms bit for bit,
+    the 2-norms (sums whose order PyTorch's reduction picks) to 1e-12
+    relative (f64) or 1e-6 (f32)."""
     import torch
 
+    f32 = args[8].dtype == torch.float32
+    kname = "admm_chunk_full_f32" if f32 else "admm_chunk_full_f64"
     out_k = kernel(*args, **kw)
     torch.cuda.synchronize()
     out_p = plain(*args, **kw)
@@ -621,13 +695,13 @@ def compare_full(case, kernel, plain, args, kw, time_it=True):
     for name, a, b in zip(FULL_NAMES, out_k, out_p):
         if name in ("prim", "dual"):
             rel = float(((a - b).abs() / (1.0 + b.abs())).max())
-            check(rel <= 1e-12, f"admm_chunk_full_f64 [{case}]: {name} rel "
-                  f"diff {rel:.3e}")
+            check(rel <= (1e-6 if f32 else 1e-12), f"{kname} [{case}]: "
+                  f"{name} rel diff {rel:.3e}")
             continue
         if a.is_floating_point() and a.numel():
             max_err = max(max_err, float((a - b).abs().max()))
-        check(torch.equal(a, b), f"admm_chunk_full_f64 [{case}]: {name} "
-              f"differs from the plain version")
+        check(torch.equal(a, b), f"{kname} [{case}]: {name} differs from "
+              f"the plain version")
     bound = full_bound(args, kw, out_k)
     rec = dict(max_abs_err=max_err, **bound)
     if time_it:
@@ -635,13 +709,14 @@ def compare_full(case, kernel, plain, args, kw, time_it=True):
         plain_ms, _ = time_cuda(lambda: plain(*args, **kw), reps=3)
         rec.update(ms=ms, plain_ms=plain_ms, issue_ms=issue_ms)
     longest = int((out_k[8] - args[16]).max())
-    log(f"[kernel] admm_chunk_full_f64 [{case}]: n={bound['n']} "
+    log(f"[kernel] {kname} [{case}]: n={bound['n']} "
         f"B={bound['B']} ls={kw['ls']} K={kw['K']} gate={kw['gate']} active "
         f"{bound['active']}, iterations run {bound['iters']} (longest "
         f"{longest}), max |diff| {max_err:.3e}"
         + (f", kernel {rec['ms']:.6f} ms (host issue {rec['issue_ms']:.6f} "
            f"ms per call), plain {rec['plain_ms']:.6f} ms" if time_it else "")
-        + f", bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})")
+        + f", bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})"
+        + (f", alpha {kw['alpha']}" if "alpha" in kw else ""))
     return rec
 
 
@@ -673,15 +748,15 @@ def random_batch(n, m, nc, ls, Bn, seed):
     return {k: np.stack(v) for k, v in out.items()}
 
 
-def recorded_full(module, run):
-    """``run()`` with `admm_chunk_full_f64` in ``module`` wrapped in a
-    `Recorder`; returns ``(result, recorder)``."""
-    rec = Recorder(module.admm_chunk_full_f64, done_at=14, itv_at=16)
-    module.admm_chunk_full_f64 = rec
+def recorded_full(module, run, name="admm_chunk_full_f64"):
+    """``run()`` with the full-layout wrapper ``name`` in ``module``
+    wrapped in a `Recorder`; returns ``(result, recorder)``."""
+    rec = Recorder(getattr(module, name), done_at=14, itv_at=16)
+    setattr(module, name, rec)
     try:
         out = run()
     finally:
-        module.admm_chunk_full_f64 = rec.fn
+        setattr(module, name, rec.fn)
     return out, rec
 
 
@@ -966,7 +1041,8 @@ def humanoid_phase(engine, two_phase):
     log(f"[humanoid:full] B={HUMANOID_B}, n={n}, FULL_OPTS: kSuccess "
         f"{ok.sum()}/{len(st)} = {ok.mean():.4%}; kMaxIterations "
         f"{(st == 1).sum()}; kFactorizationFailed {(st == 2).sum()}; n_iter "
-        f"p50 {np.median(n_iter):.0f}, max {n_iter.max()}; staged wall "
+        f"p50 {np.median(n_iter):.0f}, max {n_iter.max()}; not kSuccess at "
+        f"{np.where(~ok)[0].tolist()[:16]}; staged wall "
         f"{wall:.6f} s, stage seconds " + json.dumps(stages)
         + "; launches " + json.dumps(launches["full"]))
     check((st != 2).all(), "humanoid full engine: kFactorizationFailed")
@@ -1017,8 +1093,8 @@ def humanoid_phase(engine, two_phase):
           "humanoid drop-in: admm_chunk_full_f64 not launched")
 
     # (c) the reduced path over all 76 coordinates, two-phase: both
-    # reduced kernels at k = 76. Its convergence is not checked (the
-    # reference's own humanoid runs fail on the reduced path).
+    # reduced kernels at k = 76, held to the JAX package's share on the
+    # same instances less 1%
     full_split = two_phase.replace(splitting="full")
     pallas_admm.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1033,11 +1109,490 @@ def humanoid_phase(engine, two_phase):
         f"kFactorizationFailed {(st == 2).sum()}; launches "
         + json.dumps(launches["reduced"]))
     check(np.isfinite(q(sol.z)).all(), "humanoid reduced path: z not finite")
+    bar = HUMANOID_REDUCED_JAX_SHARE_1024
+    check((st == 0).mean() >= bar - 0.01,
+          f"humanoid reduced path: kSuccess {(st == 0).mean():.4%} < the "
+          f"JAX package's {bar:.4%} on the same instances less 1%")
+    check((st != 2).all(), "humanoid reduced path: kFactorizationFailed")
     for name in REDUCED_KERNELS:
         got = rec_red[name].first
         check(got is not None and got[0][8].shape[0] == n,
               f"{name} did not run the humanoid at k = {n}")
     return launches, rec_full, rec_red
+
+
+# kSuccess shares of the JAX package on the CPU on the first 512 instances
+# of generate_osc_batch(CASSIE, 8192, seed=0) (exp_full_reference.py,
+# sections alpha, adaptive, fast); the card's share on the same 512
+# instances of its B = 8192 solve must reach it less 1% (on these paths
+# the port's plain versions on the CPU give the JAX package's statuses
+# instance for instance)
+ALPHA_JAX_SHARE_512 = {"bench": 512 / 512, "full": 450 / 512}
+ADAPTIVE_JAX_SHARE_512 = 512 / 512
+FAST_JAX_SHARE_512 = {"adaptive": 509 / 512, "alpha": 510 / 512}
+# the JAX f32 engine's share on all 8192 instances (section f32_8192): at
+# eps 1e-6 the f32 iteration sits on the f32 floor and each instance's
+# convergence is decided by rounding (407 of the first 512 in JAX, 422 in
+# the port on the CPU, with 16 of the first 134 instances differing), so
+# the card's share over the whole batch is held to the JAX share over the
+# whole batch less 1%
+F32_JAX_SHARE_8192 = 6437 / 8192
+# serving: the JAX package's own server tests (tests/test_serving.py:19-24,
+# :78-80) over a 64-step walking log, at every depth
+SERVE_STEPS = 64
+SERVE_DEPTHS = (1, 2, 4, 8)
+SERVE_DS_OPTS = dict(max_iter=600, rho=0.05, eps_fcone=1e-6, eps_bound=1e-6,
+                     presolve="operator", scaling=True,
+                     splitting="constrained", kkt_refine_steps=1,
+                     polish=True, polish_rounds=4, polish_newton_steps=4)
+SERVE_F64_OPTS = dict(max_iter=2000, rho=1.0, eps_fcone=1e-6, eps_bound=1e-6)
+# sharded solves: both engines at the JAX package's sharding-test options
+# (tests/test_sharding.py:18, :135; on the ds engine that is the
+# full-splitting path). The reduced path is not held there: its f32 seeds
+# come from batched f32 products whose rounding moves with the batch size
+# (a shard of 16 instances against the same 16 in a batch of 32, on the
+# CPU: 3.8e-6 in the seed, one approach-phase iteration on one instance)
+SHARD_OPTS = dict(max_iter=300, rho=1.0, eps_fcone=1e-4, eps_bound=1e-4)
+
+
+def counts():
+    from fcc_qp_tpu_torch.ops import pallas_admm
+
+    return {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
+
+
+def reset_counts():
+    from fcc_qp_tpu_torch.ops import pallas_admm
+
+    pallas_admm.reset_launch_counts()
+
+
+def share_check(tag, sol, bar, residual=True, first=None):
+    """No kFactorizationFailed, no NaN, kSuccess residuals <= 1e-6, and the
+    kSuccess share on the first ``first`` instances (all when None) at
+    least ``bar`` less 1%. Returns the share over the whole batch and over
+    those instances."""
+    import numpy as np
+
+    d = sol.details
+    q = lambda t: t.cpu().numpy()
+    st = q(d.solve_status)
+    ok = st == 0
+    rb, rc = q(d.admm_residual_bounds), q(d.admm_residual_friction_cone)
+    check((st != 2).all(), f"{tag}: kFactorizationFailed")
+    check(np.isfinite(q(sol.z)).all() and not np.isnan(rb).any()
+          and not np.isnan(rc).any(), f"{tag}: NaN in the solution")
+    if residual:
+        check((np.maximum(rb, rc)[ok] <= 1e-6).all(),
+              f"{tag}: kSuccess residual above 1e-6")
+    held = ok[:first] if first else ok
+    check(held.mean() >= bar - 0.01, f"{tag}: kSuccess {held.mean():.4%} on "
+          f"the first {len(held)} < {bar - 0.01:.4%} (the JAX package's "
+          f"{bar:.4%} on the same instances less 1%)")
+    return float(ok.mean()), float(held.mean())
+
+
+def timed_solves(solve, n=3):
+    """``solve(stage_times)`` once to warm up, then ``n`` timed solves
+    counted from zero (the first counted), then one staged: ``(first
+    solution, launches of the first, walls, stages)``."""
+    import torch
+
+    solve(None)
+    torch.cuda.synchronize()
+    walls, sol, launches = [], None, None
+    for i in range(n):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve(None)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if sol is None:
+            sol, launches = out[0], counts()
+    stages = {}
+    solve(stages)
+    return sol, launches, walls, stages
+
+
+def io_phase(stacked, warm_ds):
+    """Phase 10: the replay's walking log as a packed .fqlog and both
+    warm-start kinds through `utils.io` (the replay's final
+    `WarmStartDS`, and the `WarmStart` of a parity-engine solve of the
+    log's first 1024 steps), each reloaded bit for bit; the log's write
+    and load seconds."""
+    import numpy as np
+    import torch
+
+    from fcc_qp_tpu_torch import FCCQPOptions, solve_batched
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+    from fcc_qp_tpu_torch.utils import io
+
+    _, warm_f64 = solve_batched(
+        io.to_qpbatch({k: v[:1024] for k, v in stacked.items()}),
+        CASSIE.shape, FCCQPOptions(**SHARD_OPTS))
+
+    d = os.path.join(ROOT, "test_data")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"chip_smoke_{os.getpid()}.fqlog")
+    try:
+        t0 = time.perf_counter()
+        io.save_qp_log_packed(path, stacked)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = io.load_qp_log_packed(path)
+        t_load = time.perf_counter() - t0
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    for k in io.QP_KEYS:
+        check(back[k].dtype == np.float64 and np.array_equal(
+            back[k].view(np.uint64), stacked[k].view(np.uint64)),
+            f"io: .fqlog field {k} did not reload bit for bit")
+    for kind, w in (("WarmStartDS", warm_ds), ("WarmStart", warm_f64)):
+        wp = os.path.join(d, f"chip_smoke_{os.getpid()}_{kind}.npz")
+        try:
+            io.save_warm_start(wp, w)
+            w2 = io.load_warm_start(wp)
+        finally:
+            if os.path.exists(wp):
+                os.remove(wp)
+        check(type(w2).__name__ == kind, f"io: {kind} loaded as "
+              f"{type(w2).__name__}")
+        for f, a in (w._asdict() if hasattr(w, "_asdict")
+                     else w.__dict__).items():
+            b = getattr(w2, f)
+            check(b.device == a.device and b.dtype == a.dtype
+                  and torch.equal(a, b), f"io: {kind}.{f} did not reload "
+                  f"bit for bit")
+    T = stacked["b"].shape[0]
+    log(f"[io] walking log T={T} as .fqlog: {size / 1e9:.3f} GB written in "
+        f"{t_write:.3f} s, loaded in {t_load:.3f} s "
+        f"({size / 1e9 / t_load:.3f} GB/s), bit for bit; WarmStartDS and "
+        f"WarmStart (.npz) reloaded bit for bit on the card")
+    return dict(fqlog_gb=size / 1e9, fqlog_write_s=t_write,
+                fqlog_load_s=t_load)
+
+
+def alpha_phase(engine, qp, bench, two_phase, specs, records):
+    """Phase 11: over-relaxation, alpha = 1.6. Each kernel against its
+    plain version bit for bit on an all-active first chunk at alpha 1.6
+    (``*_alpha`` keys), then a cold Cassie solve at the bench flags and at
+    FULL_OPTS with alpha 1.6, each counted from zero and held to the JAX
+    package's share less 1%. Returns {path: launches}."""
+    import numpy as np
+
+    from fcc_qp_tpu_torch import FCCQPOptions, solve_batched_ds
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+    from fcc_qp_tpu_torch.ops import pallas_admm
+
+    shape = CASSIE.shape
+    # all-active first chunks: the approach phase's first (two-phase), the
+    # f64 endgame's first with no approach phase, the full engine's first
+    _, rec_tp = recorded_solve(engine, lambda: solve_batched_ds(
+        qp, shape, two_phase.replace(alpha=ALPHA)))
+    _, rec_eg = recorded_solve(engine, lambda: solve_batched_ds(
+        qp, shape, two_phase.replace(alpha=ALPHA, phase1_tol=0.0,
+                                     max_iter=64)))
+    full_alpha = FCCQPOptions(**dict(FULL_OPTS, alpha=ALPHA))
+    _, rec_f = recorded_full(engine, lambda: solve_batched_ds(
+        qp, shape, full_alpha))
+    firsts = {"admm_chunk_f64": rec_eg, "admm_chunk_f32": rec_tp}
+    for (name, kernel, plain, prec, _), r in zip(specs, records):
+        args, kw = firsts[name][name].first
+        check(kw.get("alpha") == float(np.float32(ALPHA)),
+              f"{name}: the recorded chunk is not at alpha {ALPHA}")
+        a = compare(name, "alpha", kernel, plain, args, kw, prec, exact=True)
+        check(a["active"] == B, f"{name}: the alpha chunk is not all active")
+        r.update(ms_alpha=a["ms"], plain_ms_alpha=a["plain_ms"],
+                 bound_ms_alpha=a["bound_ms"], bound_by_alpha=a["bound_by"],
+                 max_abs_err_alpha=a["max_abs_err"])
+    fa = compare_full("alpha", pallas_admm.admm_chunk_full_f64,
+                      pallas_admm.admm_chunk_full_f64_plain, *rec_f.first)
+    check(fa["active"] == B, "the full engine's alpha chunk is not all active")
+
+    launches, shares = {}, {}
+    for tag, opts in (("bench", bench.replace(alpha=ALPHA)),
+                      ("full", full_alpha)):
+        sol, launches[tag], walls, stages = timed_solves(
+            lambda st_: solve_batched_ds(qp, shape, opts, stage_times=st_))
+        shares[tag], s512 = share_check(f"alpha:{tag}", sol,
+                                        ALPHA_JAX_SHARE_512[tag], first=512)
+        n = sol.details.n_iter.cpu().numpy()
+        log(f"[alpha:{tag}] alpha {ALPHA}, Cassie B={B}: kSuccess "
+            f"{shares[tag]:.4%}, on the first 512 {s512:.4%} (the JAX "
+            f"package there: {ALPHA_JAX_SHARE_512[tag]:.4%}); n_iter p50 "
+            f"{np.median(n):.0f}, max {n.max()}; median wall "
+            f"{sorted(walls)[1]:.6f} s; stage seconds " + json.dumps(stages)
+            + "; launches " + json.dumps(launches[tag]))
+    # the f64 endgame runs only for instances the polish rejects
+    check(launches["bench"]["admm_chunk_f32"] > 0,
+          "alpha: admm_chunk_f32 was not launched at the bench flags")
+    check(launches["full"]["admm_chunk_full_f64"] > 0,
+          "alpha: admm_chunk_full_f64 was not launched")
+    return launches, fa, shares
+
+
+def adaptive_phase(qp, bench):
+    """Phase 12: the reduced path with adaptive rho (bench.py
+    --adaptive-rho) on the Cassie batch, counted from zero, held to the
+    JAX package's share less 1%; its operator rebuilds."""
+    import numpy as np
+
+    from fcc_qp_tpu_torch import solve_batched_ds
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+
+    opts = bench.replace(**ADAPTIVE)
+    sol, launches, walls, stages = timed_solves(
+        lambda st_: solve_batched_ds(qp, CASSIE.shape, opts, stage_times=st_))
+    share, s512 = share_check("adaptive", sol, ADAPTIVE_JAX_SHARE_512,
+                              first=512)
+    n = sol.details.n_iter.cpu().numpy()
+    log(f"[adaptive] bench flags + adaptive rho "
+        + json.dumps(ADAPTIVE) + f", Cassie B={B}: kSuccess {share:.4%}, "
+        f"on the first 512 {s512:.4%} (the JAX package there: "
+        f"{ADAPTIVE_JAX_SHARE_512:.4%});"
+        f" n_iter p50 {np.median(n):.0f}, max {n.max()}; operator rebuilds "
+        f"{stages.get('n_refactor', 0)}; median wall {sorted(walls)[1]:.6f} "
+        f"s; stage seconds " + json.dumps(stages) + "; launches "
+        + json.dumps(launches))
+    check(launches["admm_chunk_f32"] > 0,
+          "adaptive: admm_chunk_f32 was not launched")
+    return launches, share
+
+
+def fast_phase(stacked):
+    """Phase 13: the batch-level engine `solve_batched_fast` at B = 8192
+    with adaptive rho, and with alpha = 1.6: shares against the JAX
+    package's less 1%, operator rebuilds and the time per solve."""
+    import numpy as np
+
+    from fcc_qp_tpu_torch import FCCQPOptions, solve_batched_fast
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+    from fcc_qp_tpu_torch.utils.io import to_qpbatch
+
+    qpb = to_qpbatch(stacked)
+    launches, out = {}, {}
+    for tag, o in (("adaptive", FAST_OPTS), ("alpha", FAST_ALPHA_OPTS)):
+        opts = FCCQPOptions(**o)
+        sol, launches[tag], walls, stages = timed_solves(
+            lambda st_: solve_batched_fast(qpb, CASSIE.shape, opts,
+                                           stage_times=st_))
+        share, s512 = share_check(f"fast:{tag}", sol,
+                                  FAST_JAX_SHARE_512[tag], first=512)
+        n = sol.details.n_iter.cpu().numpy()
+        wall = sorted(walls)[1]
+        out[tag] = dict(share=share, share_512=s512, wall_s=wall,
+                        n_refactor=stages.get("n_refactor", 0))
+        log(f"[fast:{tag}] solve_batched_fast " + json.dumps(o)
+            + f", Cassie B={B}: kSuccess {share:.4%}, on the first 512 "
+            f"{s512:.4%} (the JAX package there: "
+            f"{FAST_JAX_SHARE_512[tag]:.4%}); n_iter p50 "
+            f"{np.median(n):.0f}, max {n.max()}; operator rebuilds "
+            f"{out[tag]['n_refactor']}; median wall {wall:.6f} s "
+            f"({B / wall:.1f} solves/s); stage seconds " + json.dumps(stages)
+            + "; launches " + json.dumps(launches[tag]))
+        check(out[tag]["n_refactor"] >= 1, f"fast:{tag}: rho never adapted")
+        check(launches[tag]["admm_chunk_full_f64"] > 0,
+              f"fast:{tag}: admm_chunk_full_f64 was not launched")
+    return launches, out
+
+
+def f32_phase(stacked, solver_mod):
+    """Phase 14: the parity engine on f32 data (bench.py --engine f32) at
+    B = 8192, counted from zero, held to the JAX f32 engine's share less
+    1%; then the f32 full-layout kernel against its plain version bit for
+    bit on its first and last chunks."""
+    import numpy as np
+
+    import torch
+
+    from fcc_qp_tpu_torch import FCCQPOptions, solve_batched
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+    from fcc_qp_tpu_torch.ops import pallas_admm
+    from fcc_qp_tpu_torch.utils.io import to_qpbatch
+
+    q32 = to_qpbatch(stacked, dtype=torch.float32)
+    opts = FCCQPOptions(**F32_OPTS)
+    sol, launches, walls, _ = timed_solves(
+        lambda _st: solve_batched(q32, CASSIE.shape, opts))
+    check(sol.z.dtype == torch.float32, "f32 engine: z is not f32")
+    share, _ = share_check("f32", sol, F32_JAX_SHARE_8192, residual=False)
+    d = sol.details
+    q = lambda t: t.cpu().numpy()
+    ok = q(d.solve_status) == 0
+    res = np.maximum(q(d.admm_residual_bounds),
+                     q(d.admm_residual_friction_cone))
+    check((res[ok] < np.float32(1e-6)).all(),
+          "f32 engine: kSuccess residual at or above 1e-6")
+    n = q(d.n_iter)
+    wall = sorted(walls)[1]
+    log(f"[f32] parity engine on f32 data " + json.dumps(F32_OPTS)
+        + f", Cassie B={B}: kSuccess {share:.4%} (the JAX f32 engine on "
+        f"the same {B}: {F32_JAX_SHARE_8192:.4%}); n_iter p50 "
+        f"{np.median(n):.0f}, max {n.max()}; median wall {wall:.6f} s "
+        f"({B / wall:.1f} solves/s); factorization_time "
+        f"{float(d.factorization_time[0]):.6f} s; launches "
+        + json.dumps(launches))
+    check(launches["admm_chunk_full_f32"] > 0,
+          "f32 engine: admm_chunk_full_f32 was not launched")
+    check(launches["admm_chunk_full_f64"] == 0,
+          "f32 engine: the f64 full-layout kernel ran on f32 data")
+    _, rec = recorded_full(solver_mod, lambda: solve_batched(
+        q32, CASSIE.shape, opts), name="admm_chunk_full_f32")
+    k, p = pallas_admm.admm_chunk_full_f32, pallas_admm.admm_chunk_full_f32_plain
+    first = compare_full("f32_first", k, p, *rec.first)
+    tail = compare_full("f32_tail", k, p, *rec.last)
+    check(first["active"] == B, "the f32 engine's first chunk is not all "
+          "active")
+    return launches, first, tail, dict(share=share, wall_s=wall)
+
+
+def serving_phase():
+    """Phase 15: `FCCQPServer` over a 64-step walking log at depth 1, 2, 4
+    and 8 on both engines, each run equal to the serial `FCCQP` loop
+    (statuses equal, |dz| <= 1e-9 on ds, <= 1e-8 on f64: the JAX package's
+    server bars); ms per result (submit to retire) p50 / p95 and results
+    per second per depth."""
+    import numpy as np
+
+    from fcc_qp_tpu_torch import FCCQP, FCCQPOptions, FCCQPServer
+    from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_sequence
+
+    seq = generate_osc_sequence(CASSIE, SERVE_STEPS, seed=1)
+    keys = ("Q", "b", "A_eq", "b_eq", "friction_coeffs", "lb", "ub")
+    launches, table = {}, {}
+    for engine, o, dz_bar in (("ds", SERVE_DS_OPTS, 1e-9),
+                              ("f64", SERVE_F64_OPTS, 1e-8)):
+        opts = FCCQPOptions(**o)
+        solver = FCCQP(60, 38, 12, 38, engine=engine)
+        solver.set_options(opts)
+        z_ref, st_ref = [], []
+        t0 = time.perf_counter()
+        for i, qp in enumerate(seq):
+            solver.set_warm_start(i > 0)
+            solver.Solve(*(qp[k] for k in keys))
+            r = solver.GetSolution()
+            z_ref.append(r.z)
+            st_ref.append(r.details.solve_status)
+        serial_wall = time.perf_counter() - t0
+        z_ref, st_ref = np.stack(z_ref), np.array(st_ref)
+        table[engine] = {"serial_results_per_s": SERVE_STEPS / serial_wall,
+                         "kSuccess": int((st_ref == 0).sum())}
+        for depth in SERVE_DEPTHS:
+            server = FCCQPServer(CASSIE.shape, opts, depth=depth,
+                                 engine=engine)
+            reset_counts()
+            t0 = time.perf_counter()
+            tickets = [server.submit(*(qp[k] for k in keys)) for qp in seq]
+            results = dict(server.drain())
+            wall = time.perf_counter() - t0
+            launches[f"{engine}_d{depth}"] = counts()
+            check(sorted(results) == tickets,
+                  f"serving {engine} depth {depth}: tickets out of order")
+            z = np.stack([results[t].z for t in tickets])
+            st = np.array([results[t].details.solve_status for t in tickets])
+            ms = np.array([results[t].details.solve_time
+                           for t in tickets]) * 1e3
+            dz = float(np.abs(z - z_ref).max())
+            check(np.array_equal(st, st_ref),
+                  f"serving {engine} depth {depth}: statuses differ from "
+                  f"the serial loop")
+            check(dz <= dz_bar, f"serving {engine} depth {depth}: |dz| "
+                  f"{dz:.3e} > {dz_bar:.0e}")
+            table[engine][depth] = dict(
+                p50_ms=float(np.median(ms)),
+                p95_ms=float(np.percentile(ms, 95)),
+                results_per_s=SERVE_STEPS / wall, max_dz=dz)
+        log(f"[serving:{engine}] FCCQPServer over {SERVE_STEPS} steps, "
+            "equal to the serial FCCQP loop at every depth (statuses, "
+            f"|dz| <= {dz_bar:.0e}); per depth, ms per result (submit to "
+            "retire) and results/s: " + json.dumps(table[engine]))
+    check(launches["f64_d1"]["admm_chunk_full_f64"] > 0,
+          "serving f64: admm_chunk_full_f64 was not launched")
+    check(launches["ds_d1"]["admm_chunk_f32"] > 0,
+          "serving ds: admm_chunk_f32 was not launched")
+    return launches, table
+
+
+def sharded_phase(stacked, walking, bench, dev=None):
+    """Phase 16: `solve_batched_ds_sharded` and `solve_batched_sharded`
+    (the f64 parity engine) at `SHARD_OPTS`, over [cuda:0] and over two
+    shards on the one card, at B = 8192 and B = 8191: each equal to the
+    unsharded solve (n_iter and statuses equal; |dz| <= 1e-8 on ds,
+    <= 1e-10 on f64) with equal summary aggregates; then the weak-scaling
+    sweep (`parallel.scaling_bench`) over one and two shards at the bench
+    flags."""
+    import torch
+
+    from fcc_qp_tpu_torch import (FCCQPOptions, solve_batched,
+                                  solve_batched_ds, to_ds_batch)
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+    from fcc_qp_tpu_torch.parallel import (solve_batched_ds_sharded,
+                                           solve_batched_sharded, summarize)
+    from fcc_qp_tpu_torch.parallel.scaling_bench import run_scaling_bench
+    from fcc_qp_tpu_torch.utils.io import to_qpbatch
+
+    shape = CASSIE.shape
+    cuda0 = torch.device("cuda", 0) if dev is None else torch.device(dev)
+    opts = FCCQPOptions(**SHARD_OPTS)
+    launches, times = {}, {}
+    q = lambda t: t.cpu().numpy()
+    for Bn in (B, B - 1):
+        sub = {k: v[:Bn] for k, v in stacked.items()}
+        qds, qpb = to_ds_batch(sub), to_qpbatch(sub)
+        for kind, ref_fn, sh_fn, bar in (
+                ("ds", lambda: solve_batched_ds(qds, shape, opts),
+                 lambda m: solve_batched_ds_sharded(qds, shape, opts,
+                                                    mesh=m), 1e-8),
+                ("f64", lambda: solve_batched(qpb, shape, opts),
+                 lambda m: solve_batched_sharded(qpb, shape, opts,
+                                                 mesh=m), 1e-10)):
+            ref, _ = ref_fn()
+            ref_sum = summarize(ref)
+            for mesh in ([cuda0], [cuda0, cuda0]):
+                tag = f"{kind}_B{Bn}_x{len(mesh)}"
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sol, _, summ = sh_fn(mesh)
+                torch.cuda.synchronize()
+                times[tag] = time.perf_counter() - t0
+                launches[tag] = counts()
+                check(tuple(sol.z.shape) == (Bn, 60),
+                      f"sharded {tag}: z of shape {tuple(sol.z.shape)}")
+                dn = int((q(sol.details.n_iter) != q(ref.details.n_iter)).sum())
+                dz = float((sol.z - ref.z).abs().max())
+                check(dn == 0, f"sharded {tag}: n_iter differs from the "
+                      f"unsharded solve on {dn} instances")
+                check(torch.equal(sol.details.solve_status,
+                                  ref.details.solve_status),
+                      f"sharded {tag}: statuses differ")
+                check(dz <= bar, f"sharded {tag}: |dz| {dz:.3e} > {bar:.0e}")
+                for f in ("n_solved", "n_instances", "max_iterations"):
+                    check(int(getattr(summ, f)) == int(getattr(ref_sum, f)),
+                          f"sharded {tag}: summary {f} differs")
+                for f in ("max_residual_bounds", "max_residual_fcone",
+                          "mean_iterations", "max_bounds_viol",
+                          "max_fcone_viol"):
+                    a, b = float(getattr(summ, f)), float(getattr(ref_sum, f))
+                    check(abs(a - b) <= 1e-6 * (1.0 + abs(b)),
+                          f"sharded {tag}: summary {f} {a} vs {b}")
+                log(f"[sharded] {tag}: equal to the unsharded solve (n_iter, "
+                    f"statuses, |dz| {dz:.3e}), summary "
+                    f"{int(summ.n_solved)}/{int(summ.n_instances)} kSuccess, "
+                    f"mean n_iter {float(summ.mean_iterations):.3f}; wall "
+                    f"{times[tag]:.6f} s; launches " + json.dumps(launches[tag]))
+    # the sweep's own workload, the bench's cold batch: the walking log's
+    # first steps (every instance must converge there)
+    qlog = to_ds_batch({k: v[:B] for k, v in walking.items()})
+    sweep = run_scaling_bench(shape, qlog, bench, device_counts=(1, 2),
+                              repeats=3, devices=[cuda0])
+    log("[sharded] weak scaling over one and two shards on the one card "
+        f"(per-shard batch {sweep['per_device_batch']}): "
+        + json.dumps(sweep["results"]))
+    return launches, times, sweep
 
 
 def main() -> int:
@@ -1084,14 +1639,8 @@ def main() -> int:
     qp = to_ds_batch(stacked)
     log(f"[data] Cassie B={B} generated and moved in "
         f"{time.perf_counter() - t0:.2f} s")
-    bench = FCCQPOptions(
-        max_iter=3000, rho=0.05, eps_fcone=1e-6, eps_bound=1e-6,
-        presolve="operator", scaling=True, splitting="constrained",
-        kkt_refine_steps=1, kkt_factor="hybrid", lazy_exact=True,
-        polish=True, polish_rounds=4,
-        polish_newton_steps=CASSIE.polish_newton_steps,
-        adaptive_rho=False, alpha=1.0,
-    )
+    bench = FCCQPOptions(**BENCH_OPTS,
+                         polish_newton_steps=CASSIE.polish_newton_steps)
     t0 = time.perf_counter()
     solve_batched_ds(qp, CASSIE.shape, bench)
     torch.cuda.synchronize()
@@ -1235,7 +1784,8 @@ def main() -> int:
         ))
 
     # 5. warm replay, and each kernel on its last warm-step chunk
-    launches_replay, rec_replay = replay_phase(engine, bench)
+    launches_replay, rec_replay, log_stacked, replay_warm = replay_phase(
+        engine, bench)
     for (name, kernel, plain, prec, _), r in zip(specs, records):
         r["launches_replay"] = launches_replay[name]
         r["launches"] += launches_replay[name]
@@ -1374,10 +1924,72 @@ def main() -> int:
         active_n76=n76["active"], max_abs_err_n76=n76["max_abs_err"],
         blocks_per_sm=full_blocks, device_ms_full_solve=full_device["ms"],
         registers={k: v[0] for k, v in ptxas.items()
-                   if k.startswith("admm_chunk_full_warp")},
+                   if k.startswith("admm_chunk_full_warp<double")},
     ))
 
-    # 10. result lines
+    # 10-16. this slice's paths: host IO, over-relaxation, adaptive rho on
+    # the reduced path, the batch-level engine, the f32 parity engine,
+    # serving and the sharded solves; each path counted from zero
+    full_rec = records[2]
+    io_rec = io_phase(log_stacked, replay_warm)
+    launches_alpha, full_alpha, alpha_shares = alpha_phase(
+        engine, qp, bench, two_phase, specs, records)
+    launches_adapt, adapt_share = adaptive_phase(qp, bench)
+    launches_fast, fast_out = fast_phase(stacked)
+    launches_f32, f32_first, f32_tail, f32_out = f32_phase(stacked,
+                                                           solver_mod)
+    launches_serve, serve_table = serving_phase()
+    launches_shard, shard_times, sweep = sharded_phase(stacked, log_stacked,
+                                                       bench)
+    for r in records:
+        nm = r["name"]
+        paths = dict(
+            alpha=sum(v[nm] for v in launches_alpha.values()),
+            adaptive=launches_adapt[nm],
+            fast=sum(v[nm] for v in launches_fast.values()),
+            f32=launches_f32[nm],
+            serving=sum(v[nm] for v in launches_serve.values()),
+            sharded=sum(v[nm] for v in launches_shard.values()))
+        for path, n in paths.items():
+            r[f"launches_{path}"] = n
+        r["launches"] += sum(paths.values())
+    full_rec.update(
+        ms_alpha=full_alpha["ms"], plain_ms_alpha=full_alpha["plain_ms"],
+        bound_ms_alpha=full_alpha["bound_ms"],
+        bound_by_alpha=full_alpha["bound_by"],
+        max_abs_err_alpha=full_alpha["max_abs_err"])
+    f32_paths = dict(
+        alpha=sum(v["admm_chunk_full_f32"] for v in launches_alpha.values()),
+        adaptive=launches_adapt["admm_chunk_full_f32"],
+        fast=sum(v["admm_chunk_full_f32"] for v in launches_fast.values()),
+        f32=launches_f32["admm_chunk_full_f32"],
+        serving=sum(v["admm_chunk_full_f32"] for v in launches_serve.values()),
+        sharded=sum(v["admm_chunk_full_f32"]
+                    for v in launches_shard.values()))
+    records.append(dict(
+        name="admm_chunk_full_f32", route="cuda",
+        source="fcc_qp_tpu_torch/csrc/admm_chunk.cu",
+        replaces="fcc_qp_tpu/ops/pallas_admm.py:445",
+        launches=sum(f32_paths.values()),
+        **{f"launches_{k}": v for k, v in f32_paths.items()},
+        max_abs_err=f32_first["max_abs_err"], ms=f32_first["ms"],
+        plain_ms=f32_first["plain_ms"], bound_ms=f32_first["bound_ms"],
+        bound_by=f32_first["bound_by"], library_ms=None,
+        ms_tail=f32_tail["ms"], plain_ms_tail=f32_tail["plain_ms"],
+        bound_ms_tail=f32_tail["bound_ms"], bound_by_tail=f32_tail["bound_by"],
+        active_tail=f32_tail["active"],
+        max_abs_err_tail=f32_tail["max_abs_err"],
+        blocks_per_sm={n: pallas_admm.blocks_per_sm("admm_chunk_full_f32", n)
+                       for n in (24, 42, 60, 76, 90)},
+        registers={k: v[0] for k, v in ptxas.items()
+                   if k.startswith("admm_chunk_full_warp<float")},
+    ))
+    log("[slice] this slice's paths: " + json.dumps(dict(
+        io=io_rec, alpha_shares=alpha_shares, adaptive_share=adapt_share,
+        fast=fast_out, f32=f32_out, sharded_walls=shard_times,
+        scaling=sweep["results"])))
+
+    # 17. result lines
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,30 @@ and 7, and prints the numbers those phases are held to:
    `generate_osc_sequence(HUMANOID, 20, seed=0)` at
    `chip_smoke.HUMANOID_DROPIN_OPTS`: kSuccess shares and status counts.
 
-Takes a few minutes (the JAX programs compile first). Needs the JAX
+4. the humanoid's full engine on instances 608-639 (the card leaves
+   instance 614 at the 2000-iteration cap) and on all 1024: the
+   instances either package leaves unconverged, and where statuses or
+   n_iter differ;
+5. the humanoid's reduced two-phase path with ``splitting="full"`` (k =
+   76) on the first 64 instances, as `chip_smoke.py` phase 9 runs it:
+   kSuccess shares, statuses and n_iter;
+6. the options this slice added, each on the first 512 instances of
+   `generate_osc_batch(CASSIE, 8192, seed=0)`: over-relaxation (alpha =
+   1.6) at the bench flags and at `chip_smoke.FULL_OPTS`; the bench
+   flags with ``--adaptive-rho`` (`chip_smoke.ADAPTIVE`); the batch-level
+   engine `solve_batched_fast` at `chip_smoke.FAST_OPTS` and
+   `chip_smoke.FAST_ALPHA_OPTS`; and the parity engine on f32 data at
+   `chip_smoke.F32_OPTS` (``bench.py --engine f32``).
+
+    python3 exp_full_reference.py [--skip-port] [section ...]
+
+runs the named sections (``full``, ``dropin``, ``humanoid``,
+``humanoid614``, ``humanoid1024``, ``humanoid_reduced``,
+``humanoid_reduced1024`` (the same on all 1024), ``alpha``,
+``adaptive``, ``fast``, ``f32``, ``f32_8192`` (the same on all 8192)),
+all of them by default.
+
+Takes minutes per section (the JAX programs compile first). Needs the JAX
 package's test environment: XLA on the CPU with x64 and the SSE4.2 pin
 that its double-single arithmetic needs (set here before JAX loads).
 """
@@ -117,10 +140,150 @@ def dropin(port: bool, model=CASSIE, steps=chip_smoke.DROPIN_STEPS,
                   flush=True)
 
 
+def _tshape(model):
+    import fcc_qp_tpu_torch as T
+
+    return T.ProblemShape(*(getattr(model.shape, f) for f in (
+        "num_vars", "num_eq", "nc", "lambda_c_start")))
+
+
+def _compare(tag, jsol, tsol, first):
+    """Print both packages' kSuccess counts, and where statuses and n_iter
+    differ."""
+    js = np.asarray(jsol.details.solve_status)
+    jn = np.asarray(jsol.details.n_iter)
+    print(f"{tag} JAX: kSuccess {(js == 0).sum()}/{first} = "
+          f"{(js == 0).mean():.6f}; n_iter p50 {np.median(jn):.0f}, max "
+          f"{jn.max()}; not kSuccess at {np.where(js != 0)[0].tolist()[:16]}",
+          flush=True)
+    if tsol is None:
+        return
+    ts = tsol.details.solve_status.numpy()
+    tn = tsol.details.n_iter.numpy()
+    dz = float(np.abs(np.asarray(jsol.z) - tsol.z.numpy()).max())
+    print(f"{tag} port (plain versions on the CPU): kSuccess "
+          f"{(ts == 0).sum()}/{first} = {(ts == 0).mean():.6f}; not "
+          f"kSuccess at {np.where(ts != 0)[0].tolist()[:16]}; statuses "
+          f"differ on {np.where(ts != js)[0].tolist()[:16]}; n_iter differs "
+          f"on {(tn != jn).sum()} instances {np.where(tn != jn)[0].tolist()[:16]}"
+          f" (|dn| max {np.abs(tn.astype(int) - jn).max()}); max |dz| "
+          f"{dz:.3e}", flush=True)
+
+
+def ds_options(port: bool, tag, opts, model=CASSIE, B=chip_smoke.B,
+               first=512):
+    """`solve_batched_ds` in both packages on the first ``first`` (or the
+    ``(lo, hi)`` window) of `generate_osc_batch(model, B, seed=0)` at
+    ``opts`` (a dict)."""
+    st = stack_qp_dicts(generate_osc_batch(model, B, seed=0))
+    lo, hi = first if isinstance(first, tuple) else (0, first)
+    st = {k: v[lo:hi] for k, v in st.items()}
+    first = hi - lo
+    t0 = time.perf_counter()
+    jsol, _ = solve_batched_ds(to_ds_batch(st), model.shape,
+                               J.FCCQPOptions(**opts), timing=False)
+    print(f"{tag} JAX solve {time.perf_counter() - t0:.1f} s", flush=True)
+    tsol = None
+    if port:
+        import fcc_qp_tpu_torch as T
+
+        tsol, _ = T.solve_batched_ds(T.to_ds_batch(st, device="cpu"),
+                                     _tshape(model), T.FCCQPOptions(**opts),
+                                     device="cpu")
+    _compare(tag, jsol, tsol, first)
+
+
+def fast_options(port: bool, tag, opts, first=512, dtype=None):
+    """`solve_batched_fast` (or, with ``dtype`` f32, the parity engine's
+    `solve_batched` on f32 data) in both packages on the first ``first``
+    of `generate_osc_batch(CASSIE, 8192, seed=0)`."""
+    import jax.numpy as jnp
+
+    from fcc_qp_tpu.utils.io import to_qpbatch
+
+    st = stack_qp_dicts(generate_osc_batch(CASSIE, chip_smoke.B, seed=0))
+    st = {k: v[:first] for k, v in st.items()}
+    t0 = time.perf_counter()
+    if dtype == "f32":
+        jsol, _ = J.solve_batched(to_qpbatch(st, dtype=jnp.float32),
+                                  CASSIE.shape, J.FCCQPOptions(**opts),
+                                  timing=False)
+    else:
+        jsol, _ = J.solve_batched_fast(to_qpbatch(st), CASSIE.shape,
+                                       J.FCCQPOptions(**opts))
+    print(f"{tag} JAX solve {time.perf_counter() - t0:.1f} s", flush=True)
+    tsol = None
+    if port:
+        import torch
+
+        import fcc_qp_tpu_torch as T
+        from fcc_qp_tpu_torch.utils.io import to_qpbatch as tq
+
+        torch.set_num_threads(4)
+        if dtype == "f32":
+            tsol, _ = T.solve_batched(tq(st, dtype=torch.float32,
+                                         device="cpu"), _tshape(CASSIE),
+                                      T.FCCQPOptions(**opts), device="cpu")
+        else:
+            tsol, _ = T.solve_batched_fast(tq(st, device="cpu"),
+                                           _tshape(CASSIE),
+                                           T.FCCQPOptions(**opts),
+                                           device="cpu")
+    _compare(tag, jsol, tsol, first)
+
+
+SECTIONS = {
+    "full": lambda port: full_batch(port),
+    "dropin": lambda port: dropin(port),
+    "humanoid": lambda port: (
+        full_batch(port, HUMANOID, chip_smoke.HUMANOID_B, 64),
+        dropin(port, HUMANOID, chip_smoke.HUMANOID_DROPIN_STEPS,
+               (("f64", chip_smoke.HUMANOID_DROPIN_OPTS),))),
+    # the one instance the card leaves at the cap (614), in the window of
+    # 32 around it: at FULL_OPTS the 7 adaptation checks stay below the 8
+    # rebuilds allowed, so an instance's result does not depend on its batch
+    "humanoid614": lambda port: ds_options(
+        port, "[humanoid:full_608-639]", chip_smoke.FULL_OPTS, HUMANOID,
+        chip_smoke.HUMANOID_B, (608, 640)),
+    "humanoid1024": lambda port: ds_options(
+        port, "[humanoid1024:full]", chip_smoke.FULL_OPTS, HUMANOID,
+        chip_smoke.HUMANOID_B, chip_smoke.HUMANOID_B),
+    # the two-phase options of chip_smoke.py phases 3 and 9c
+    "humanoid_reduced": lambda port: ds_options(
+        port, "[humanoid:reduced_full]",
+        dict(chip_smoke.BENCH_OPTS, polish=False, phase1_tol=1e-2,
+             splitting="full", polish_newton_steps=HUMANOID.polish_newton_steps),
+        HUMANOID, chip_smoke.HUMANOID_B, 64),
+    "humanoid_reduced1024": lambda port: ds_options(
+        port, "[humanoid:reduced_full_1024]",
+        dict(chip_smoke.BENCH_OPTS, polish=False, phase1_tol=1e-2,
+             splitting="full", polish_newton_steps=HUMANOID.polish_newton_steps),
+        HUMANOID, chip_smoke.HUMANOID_B, chip_smoke.HUMANOID_B),
+    "alpha": lambda port: (
+        ds_options(port, "[alpha:bench]", dict(
+            chip_smoke.BENCH_OPTS, alpha=chip_smoke.ALPHA,
+            polish_newton_steps=CASSIE.polish_newton_steps)),
+        ds_options(port, "[alpha:full]", dict(
+            chip_smoke.FULL_OPTS, alpha=chip_smoke.ALPHA))),
+    "adaptive": lambda port: ds_options(port, "[adaptive:bench]", dict(
+        chip_smoke.BENCH_OPTS, **chip_smoke.ADAPTIVE,
+        polish_newton_steps=CASSIE.polish_newton_steps)),
+    "fast": lambda port: (
+        fast_options(port, "[fast:adaptive]", chip_smoke.FAST_OPTS),
+        fast_options(port, "[fast:alpha]", chip_smoke.FAST_ALPHA_OPTS)),
+    "f32": lambda port: fast_options(port, "[f32]", chip_smoke.F32_OPTS,
+                                     dtype="f32"),
+    # the same on every instance of the card's batch: at eps 1e-6 which
+    # instance converges is decided by rounding, so its share is compared
+    # over the whole batch, not a sample
+    "f32_8192": lambda port: fast_options(port, "[f32:8192]",
+                                          chip_smoke.F32_OPTS,
+                                          first=chip_smoke.B, dtype="f32"),
+}
+
+
 if __name__ == "__main__":
     port = "--skip-port" not in sys.argv
-    full_batch(port)
-    dropin(port)
-    full_batch(port, HUMANOID, chip_smoke.HUMANOID_B, 64)
-    dropin(port, HUMANOID, chip_smoke.HUMANOID_DROPIN_STEPS,
-           (("f64", chip_smoke.HUMANOID_DROPIN_OPTS),))
+    names = [a for a in sys.argv[1:] if not a.startswith("--")]
+    for name in names or SECTIONS:
+        SECTIONS[name](port)

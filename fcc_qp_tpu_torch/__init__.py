@@ -18,6 +18,7 @@ torch.set_float32_matmul_precision("highest")
 
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape  # noqa: E402
 from fcc_qp_tpu_torch.core.api import FCCQP  # noqa: E402
+from fcc_qp_tpu_torch.core.batched import solve_batched_fast  # noqa: E402
 from fcc_qp_tpu_torch.core.ds_engine import (  # noqa: E402
     OperatorCache,
     QPBatchDS,
@@ -30,6 +31,7 @@ from fcc_qp_tpu_torch.core.ds_engine import (  # noqa: E402
     warm_start_f64_from_numpy,
     warm_start_from_numpy,
 )
+from fcc_qp_tpu_torch.core.serving import FCCQPServer  # noqa: E402
 from fcc_qp_tpu_torch.core.solver import (  # noqa: E402
     replay,
     solve,
@@ -45,10 +47,12 @@ from fcc_qp_tpu_torch.types import (  # noqa: E402
 
 __all__ = [
     "FCCQP",
+    "FCCQPServer",
     "QPBatch",
     "WarmStart",
     "solve",
     "solve_batched",
+    "solve_batched_fast",
     "replay",
     "FCCQPOptions",
     "ProblemShape",

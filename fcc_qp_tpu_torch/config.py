@@ -7,9 +7,9 @@ options struct (the first four fields) plus the acceleration features
 documented field by field in the JAX package; `ProblemShape` mirrors the
 reference constructor arguments.
 
-Options that this package does not implement yet are accepted here (so
-the option set stays identical to the JAX package's) and rejected with
-`NotImplementedError` by the solver entry point that would need them.
+Every option is implemented by the engine that takes it (the f64
+parity engine, like the JAX package's, ignores the acceleration
+options: ``alpha``, adaptive rho, scaling, splitting and polish).
 """
 
 from __future__ import annotations

@@ -45,17 +45,22 @@ class FCCQP:
         ``rho`` acts in the equilibrated space (0.05 is a good value), and
         residuals are still checked in unscaled units.
 
+    ``dtype``: accepted and kept as ``self.dtype`` (default f64), as the
+    JAX class keeps its own; as there, the f64 engine solves in f64 and
+    the ds engine in its own precisions whatever it says.
+
     ``device``: where the solves run (default CUDA; raises when there is
     no card). Inputs may be numpy arrays or tensors on any device.
     """
 
     def __init__(self, num_vars: int, num_equality_constraints: int,
-                 nc: int, lambda_c_start: int, engine: str = "auto",
-                 device=None):
+                 nc: int, lambda_c_start: int, dtype=None,
+                 engine: str = "auto", device=None):
         self.shape = ProblemShape(
             num_vars=num_vars, num_eq=num_equality_constraints, nc=nc,
             lambda_c_start=lambda_c_start,
         )
+        self.dtype = dtype or torch.float64
         if engine not in ("auto", "f64", "ds"):
             raise ValueError("engine must be 'auto', 'f64', or 'ds'")
         self.engine = "f64" if engine == "auto" else engine

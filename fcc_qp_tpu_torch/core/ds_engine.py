@@ -31,6 +31,10 @@ it whenever neither scaling, constrained splitting nor polish is on.
 
 The JAX engine's `lax.while_loop` over chunks is a Python loop here,
 with the convergence test between chunks (one host read per chunk).
+Both engines take over-relaxation (``alpha``, inside the kernels) and
+adaptive rho (between chunks: the residual-balance rule, the scaled
+duals rescaled to keep the unscaled ones, the operator rebuilt only when
+some rho changed, the checks backing off exponentially).
 
 Warm replay (`replay_ds_streams`) splits a log into parallel streams,
 solves step 0 of every stream cold and each later step warm, carrying
@@ -39,11 +43,9 @@ refreshed instead of rebuilt, the Ruiz factors are reused, and the
 polish starts from the carried seed and classification before any ADMM
 iteration. `replay_ds` is the serial single-stream replay.
 
-Not ported yet (raise `NotImplementedError`, see ROADMAP.md queue A):
-over-relaxation (``alpha != 1``) on either engine, and adaptive rho on
-the reduced path. The kernels take at most 96 rows (n on the full
-engine, k on the reduced path; `ops.pallas_admm.MAX_ROWS`), which covers
-every model of `models/osc.py`: larger problems raise on the card.
+The kernels take at most 96 rows (n on the full engine, k on the
+reduced path; `ops.pallas_admm.MAX_ROWS`), which covers every model of
+`models/osc.py`: larger problems raise on the card.
 """
 
 from __future__ import annotations
@@ -293,18 +295,33 @@ def _reduced(opts: FCCQPOptions) -> bool:
     return opts.scaling or opts.splitting == "constrained" or opts.polish
 
 
-def _check_supported(opts: FCCQPOptions, reduced: bool):
-    """Options this port does not cover raise, naming the ROADMAP.md
-    queue-A item that adds them."""
-    unsupported = []
-    if opts.alpha != 1.0:
-        unsupported.append("alpha != 1 (item 11)")
-    if reduced and opts.adaptive_rho:
-        unsupported.append("adaptive_rho=True on the reduced path (item 11)")
-    if unsupported:
-        raise NotImplementedError(
-            "not ported yet (ROADMAP.md queue A): " + ", ".join(unsupported)
-        )
+def _alpha(opts: FCCQPOptions) -> float:
+    """The over-relaxation as the JAX engine applies it: rounded to f32
+    (exact in f64, and ``1 - alpha`` with it)."""
+    return float(np.float32(opts.alpha))
+
+
+def _rho_step(prim, dual, done, rho, opts: FCCQPOptions,
+              dtype=torch.float32):
+    """The adaptive-rho rule, computed in ``dtype`` (rho's): f32 from the
+    f32-rounded residual norms on both ds engines, as the JAX engine does;
+    the data's dtype on the batch-level engine. Where an unfinished
+    instance's primal and dual norms are out of balance by more than the
+    tolerance, ``rho <- clip(rho * sqrt(prim / dual))``. Returns
+    ``(new_rho, scale)`` with ``scale = rho_old / rho_new`` (1 where rho
+    did not change; the scaled duals take it so that the unscaled ones
+    stay), or None when no rho changed."""
+    tol = opts.adaptive_rho_tolerance
+    prim, dual = prim.to(dtype), dual.to(dtype)
+    safe = (prim > 1e-30) & (dual > 1e-30) & ~done
+    ratio = sqrt_rn(prim / torch.clamp_min(dual, 1e-30))
+    trigger = safe & ((ratio > tol) | (ratio < 1.0 / tol))
+    new_rho = torch.where(
+        trigger, torch.clamp(rho * ratio, opts.rho_min, opts.rho_max), rho)
+    changed = new_rho != rho
+    if not bool(changed.any()):
+        return None
+    return new_rho, torch.where(changed, rho / new_rho, torch.ones_like(rho))
 
 
 class _PrepReduced(NamedTuple):
@@ -583,6 +600,8 @@ def _solve_reduced_k0(qp: QPBatchDS, shape: ProblemShape,
 @dataclasses.dataclass
 class _RState:
     it: int                  # global iteration counter (chunks * K)
+    next_adapt: int          # the next `it` at which rho may adapt
+    n_refactor: int          # operator rebuilds after a rho change
     xc: torch.Tensor         # (k, B) primal, constrained coords
     s: torch.Tensor          # (k, B) slack (box part + cone tail)
     mu: torch.Tensor         # (k, B) scaled duals
@@ -638,6 +657,7 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     eps_f = float(np.float32(opts.eps_fcone))
     max_iter = opts.max_iter
     inc_gate = opts.presolve == "operator"
+    alpha = _alpha(opts)
 
     qps = prep.qps
     d = prep.d
@@ -648,13 +668,15 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     mu_eff = qps.friction_coeffs.contiguous()
     lbc32, ubc32, mu_eff32 = lbc.float(), ubc.float(), mu_eff.float()
 
-    K = min(max_iter, 64)
+    # chunks of the adaptation interval when rho adapts (it adapts between
+    # chunks), else of 64 iterations
+    K = opts.adaptive_rho_interval if opts.adaptive_rho else min(max_iter, 64)
     n_chunks = -(-max_iter // K)
 
     xc0 = prep.x_init[ci_t].contiguous()
     zeros_b = torch.zeros((B,), dtype=f64, device=dev)
     st = _RState(
-        it=0, xc=xc0, s=xc0, mu=prep.mu0.contiguous(), v=xc0 - prep.mu0,
+        it=0, next_adapt=K, n_refactor=0, xc=xc0, s=xc0, mu=prep.mu0.contiguous(), v=xc0 - prep.mu0,
         rho=prep.rho0, Fcc=prep.Fcc, xc_const=prep.xc_const,
         Fcolj=prep.Fcolj, x_const=prep.x_const,
         x_res_norm=zeros_b, lam_res_norm=zeros_b, prim_norm=zeros_b,
@@ -689,7 +711,7 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
             st.done, st.n_iter, st.itv,
             st.x_res_norm.float(), st.lam_res_norm.float(),
             st.prim_norm.float(), st.dual_norm.float(),
-            kb=kb, K=Kc, max_iter=max_iter, weights=wk,
+            kb=kb, K=Kc, max_iter=max_iter, weights=wk, alpha=alpha,
         )
         frozen = st.done[None, :]
         keep = lambda new, old: torch.where(frozen, old, new.double())
@@ -710,8 +732,38 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
             st.xc, st.s, st.mu, st.v, st.done, st.n_iter, st.itv,
             st.x_res_norm, st.lam_res_norm, st.prim_norm, st.dual_norm,
             kb=kb, K=K, max_iter=max_iter, weights=wk64, inc_gate=inc_gate,
+            alpha=alpha,
         )
         st.it += K
+
+    def adapt(st):
+        """Adaptive rho after a chunk (the JAX engine's `adapt`): due at
+        ``next_adapt`` (then doubled) while fewer than
+        ``adaptive_rho_max_adaptations`` rebuilds ran; the operator is
+        rebuilt on the whole batch when some rho changed, with the exact
+        factor (hybrid, or the f64 Schur route), as the JAX engine's
+        `_reduced_factor_fn` does."""
+        if not opts.adaptive_rho:
+            return
+        if not (st.it >= st.next_adapt
+                and st.n_refactor < opts.adaptive_rho_max_adaptations):
+            return
+        st.next_adapt *= 2
+        step = _rho_step(st.prim_norm, st.dual_norm, st.done, st.rho, opts)
+        if step is None:
+            return
+        st.rho, scale = step
+        st.mu = st.mu * scale.double()[None, :]
+        if opts.kkt_factor == "hybrid":
+            out = _factor_reduced_hybrid(qps, st.rho, ci, mask,
+                                         opts.kkt_refine_steps + 1)[:4]
+        else:
+            out = _factor_reduced(qps, st.rho, ci, mask,
+                                  opts.kkt_refine_steps)
+        st.Fcc, st.xc_const, st.Fcolj, st.x_const = out
+        op32.clear()
+        st.n_refactor += 1
+        clock.count("n_refactor", 1)
 
     coarse_tol = max(opts.phase1_tol, opts.polish_tol if opts.polish else 0.0)
     two_phase = coarse_tol > max(opts.eps_bound, opts.eps_fcone)
@@ -795,6 +847,7 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
         lift32(st)
         while st.it < n_chunks * K and not settled(st):
             chunk32(st, K, coarse_tol)
+            adapt(st)
         clock.mark("approach")
         if warm_polish:
             # coarse-point retry of the warm-rejected instances only,
@@ -863,6 +916,7 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     it_budget = 2 * n_chunks * K + (opts.polish_rounds - 1) * opts.polish_interval
     while st.it < it_budget and not settled(st):
         chunk64(st)
+        adapt(st)
     clock.mark("endgame")
 
     # final full-space primal at the v that PRODUCED the accepted xc
@@ -1019,6 +1073,7 @@ def _iterate_full(qp: QPBatchDS, prep: _PrepFull, shape,
     eps_b = float(np.float32(opts.eps_bound))
     eps_f = float(np.float32(opts.eps_fcone))
     gate = GATE_SPLIT if opts.presolve == "operator" else GATE_OFF
+    alpha = _alpha(opts)
     K = opts.adaptive_rho_interval if opts.adaptive_rho else min(max_iter, 64)
     n_chunks = -(-max_iter // K)
 
@@ -1044,7 +1099,7 @@ def _iterate_full(qp: QPBatchDS, prep: _PrepFull, shape,
         out = admm_chunk_full_f64(
             Fj, x_const, lb, ub, mu_f, rho.double(), eps_b, eps_f,
             *(st[k] for k in keys), ls=ls, K=K, max_iter=max_iter,
-            gate=gate,
+            gate=gate, alpha=alpha,
         )
         st = dict(zip(keys, out))
         it += K
@@ -1091,25 +1146,15 @@ def _iterate_full(qp: QPBatchDS, prep: _PrepFull, shape,
 
 def _adapt_rho(qp: QPBatchDS, st: dict, rho, Fj, x_const,
                opts: FCCQPOptions):
-    """One adaptive-rho step of the full engine: where the primal and
-    dual residual norms are out of balance by more than the tolerance,
-    ``rho <- clip(rho * sqrt(prim / dual))`` and the scaled duals take
-    ``rho_old / rho_new``; the batch's operator is rebuilt when any rho
-    changed (an instance whose rho did not change gets the identical
-    operator back). Computed in f32 from the f32-rounded norms, as the JAX
-    engine does. Returns ``(rho, Fj, x_const, changed)``."""
-    tol = opts.adaptive_rho_tolerance
-    prim, dual = st["prim"].float(), st["dual"].float()
-    safe = (prim > 1e-30) & (dual > 1e-30) & ~st["done"]
-    ratio = sqrt_rn(prim / torch.clamp_min(dual, 1e-30))
-    trigger = safe & ((ratio > tol) | (ratio < 1.0 / tol))
-    new_rho = torch.where(
-        trigger, torch.clamp(rho * ratio, opts.rho_min, opts.rho_max), rho)
-    changed_mask = new_rho != rho
-    if not bool(changed_mask.any()):
+    """One adaptive-rho step of the full engine (`_rho_step`); the batch's
+    operator is rebuilt when any rho changed (an instance whose rho did
+    not change gets the identical operator back). Returns ``(rho, Fj,
+    x_const, changed)``."""
+    step = _rho_step(st["prim"], st["dual"], st["done"], rho, opts)
+    if step is None:
         return rho, Fj, x_const, False
-    scale = torch.where(changed_mask, rho / new_rho,
-                        torch.ones_like(rho)).double()
+    new_rho, scale = step
+    scale = scale.double()
     st["mu_x"] = st["mu_x"] * scale[None, :]
     st["mu_lam"] = st["mu_lam"] * scale[None, :]
     Fj, x_const = _factor(qp, new_rho, opts.kkt_refine_steps)
@@ -1133,8 +1178,8 @@ def solve_batched_ds(
     splitting over the constrained coordinates, or over all of them with
     ``splitting='full'``; a batch without any constrained coordinate is
     one refined KKT solve); otherwise it takes the full-splitting engine
-    with the reference's semantics (the package defaults). Over-relaxation
-    and adaptive rho on the reduced path raise `NotImplementedError`.
+    with the reference's semantics (the package defaults). Both take
+    over-relaxation (``alpha``) and adaptive rho.
 
     Runs on ``device`` (default CUDA; raises when there is no card),
     moving ``qp`` / ``warm`` there if they live elsewhere.
@@ -1142,8 +1187,8 @@ def solve_batched_ds(
     spans (each ending in a device synchronize). ``stage_times``: a dict
     that receives the synchronized wall seconds of each stage (reduced:
     scaling, operator, approach, polish, exact_build, endgame, finalize;
-    full: operator, iterate, finalize, and the adaptive-rho refactor
-    count ``n_refactor``); it adds a device synchronize at every stage
+    full: operator, iterate, finalize), and the adaptive-rho refactor
+    count ``n_refactor``; it adds a device synchronize at every stage
     boundary. ``con_idx``: the constrained coordinates
     (`constrained_indices`), computed from ``qp`` when None; the replays
     pass those of their whole log.
@@ -1152,7 +1197,6 @@ def solve_batched_ds(
     """
     dev = resolve_device(device)
     reduced = _reduced(opts) or con_idx is not None
-    _check_supported(opts, reduced)
     qp = QPBatchDS(*(a.to(dev) for a in qp))
     if warm is not None:
         warm = WarmStartDS(*(a.to(dev) for a in warm))
@@ -1246,8 +1290,7 @@ def replay_ds_streams(
     reference's serial warm-started loop; the streams fill the card.
 
     Runs on ``device`` (default CUDA; raises when there is no card).
-    Options this port does not cover raise `NotImplementedError`, as in
-    `solve_batched_ds`. ``stage_times``: a dict that receives, under
+    ``stage_times``: a dict that receives, under
     ``"step0"`` and ``"warm"``, the synchronized stage seconds of the
     cold step and their sums over the warm steps, with the instance
     counts ``n_kkt_rescue`` (cold KKT-seed rebuilds of non-contracting
@@ -1267,7 +1310,6 @@ def replay_ds_streams(
         raise ValueError(f"T={T} must be a multiple of n_streams={S}")
     steps = T // S
     reduced = _reduced(opts)
-    _check_supported(opts, reduced)
     con_idx = (constrained_indices(qps, shape, full=opts.splitting == "full")
                if reduced else None)
 

@@ -18,9 +18,18 @@ converge freeze where they stopped, so a batch gives each instance the
 result of its own serial solve. The JAX package runs the same loop as a
 vmapped `lax.while_loop`.
 
-Data is batch-LEADING `types.QPBatch` in f64 (`solve` takes one instance,
+Data is batch-LEADING `types.QPBatch` (`solve` takes one instance,
 `solve_batched` a batch); the loop's state is batch-last, as the kernel
-reads it.
+reads it. The engine computes in the data's dtype, as the JAX package's
+does: f64 data runs `admm_chunk_full_f64`, f32 data (the JAX bench's
+``--engine f32``) the f32 instantiation `admm_chunk_full_f32`, with the
+operator, the presolve and the residuals in f32. Any other dtype is
+taken as f64.
+
+Like the JAX package's, this engine is the reference algorithm: it
+ignores the acceleration options (``alpha``, adaptive rho, scaling,
+splitting, polish). `core.batched.solve_batched_fast` is the batch-level
+engine that takes over-relaxation and adaptive rho.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from fcc_qp_tpu_torch.ops.kkt import admm_operator, kkt_solve
 from fcc_qp_tpu_torch.ops.pallas_admm import (
     GATE_ALL,
     GATE_OFF,
+    admm_chunk_full_f32,
     admm_chunk_full_f64,
 )
 from fcc_qp_tpu_torch.ops.projections import (
@@ -52,6 +62,17 @@ from fcc_qp_tpu_torch.types import (
 from fcc_qp_tpu_torch.utils.timing import stamp_solution_times, sync
 
 
+def compute_dtype(qp: QPBatch) -> torch.dtype:
+    """The dtype a solve of ``qp`` computes in: f32 for f32 data, f64
+    otherwise."""
+    return torch.float32 if qp.Q.dtype == torch.float32 else torch.float64
+
+
+def full_chunk(dtype):
+    """The full-layout chunk kernel's wrapper for ``dtype``."""
+    return admm_chunk_full_f32 if dtype == torch.float32 else admm_chunk_full_f64
+
+
 def _presolve(qp: QPBatch) -> torch.Tensor:
     """The equality-constrained QP's solution, (B, n): ``[[Q, A'],[A, 0]]
     s = [-b; b_eq]``."""
@@ -61,15 +82,16 @@ def _presolve(qp: QPBatch) -> torch.Tensor:
 def _admm(qp: QPBatch, x0, mu_x0, mu_lam0, skip, shape: ProblemShape,
           opts: FCCQPOptions, operator):
     """The ADMM loop over a batch (B-leading in, B-leading out), in chunks
-    of the full-layout kernel. ``skip`` (B,) marks instances that do not
-    iterate. Returns ``(x, mu_x, mu_lam, n_iter, xrn, lrn)``."""
+    of the full-layout kernel, in the dtype of ``x0``. ``skip`` (B,) marks
+    instances that do not iterate. Returns ``(x, mu_x, mu_lam, n_iter,
+    xrn, lrn)``."""
     nc, ls = shape.nc, shape.lambda_c_start
     F, x_const = operator
     B = x0.shape[0]
     dev = x0.device
-    f64 = torch.float64
+    dt = x0.dtype
     last = lambda a: a.T.contiguous()
-    zb = torch.zeros((B,), dtype=f64, device=dev)
+    zb = torch.zeros((B,), dtype=dt, device=dev)
     x = last(x0)
     mu_x, mu_lam = last(mu_x0), last(mu_lam0)
     st = dict(
@@ -83,15 +105,16 @@ def _admm(qp: QPBatch, x0, mu_x0, mu_lam0, skip, shape: ProblemShape,
     Fj = F.permute(2, 1, 0).contiguous()          # [j, i, b] = F[b, i, j]
     const = (Fj, last(x_const), last(qp.lb), last(qp.ub),
              last(qp.friction_coeffs),
-             torch.full((B,), float(opts.rho), dtype=f64, device=dev),
+             torch.full((B,), float(opts.rho), dtype=dt, device=dev),
              opts.eps_bound, opts.eps_fcone)
+    chunk = full_chunk(dt)
     gate = GATE_ALL if opts.presolve == "operator" else GATE_OFF
     K = min(opts.max_iter, 64)
     keys = ("x", "x_bar", "lam_bar", "mu_x", "mu_lam", "v", "done",
             "n_iter", "itv", "xrn", "lrn", "prim", "dual")
     while not bool((st["done"] | (st["itv"] >= opts.max_iter)).all()):
-        out = admm_chunk_full_f64(*const, *(st[k] for k in keys), ls=ls, K=K,
-                                  max_iter=opts.max_iter, gate=gate)
+        out = chunk(*const, *(st[k] for k in keys), ls=ls, K=K,
+                    max_iter=opts.max_iter, gate=gate)
         st = dict(zip(keys, out))
     return (st["x"].T, st["mu_x"].T, st["mu_lam"].T, st["n_iter"],
             st["xrn"], st["lrn"])
@@ -124,12 +147,13 @@ def _details(x, qp: QPBatch, shape: ProblemShape, n_iter, xrn, lrn,
 
 def _solve_core(qp: QPBatch, shape: ProblemShape, opts: FCCQPOptions,
                 warm: Optional[WarmStart], warm_start: bool, operator=None):
-    """A solve of the batch ``qp`` (B-leading, f64, on its device)."""
+    """A solve of the batch ``qp`` (B-leading, f64 or f32, on its
+    device)."""
     B = qp.b.shape[0]
     dev = qp.b.device
     nc = shape.nc
     if warm is None:
-        warm = WarmStart.zeros(shape, (B,), device=dev)
+        warm = WarmStart.zeros(shape, (B,), dtype=qp.Q.dtype, device=dev)
     if warm_start:
         mu_x0, mu_lam0 = warm.mu_x, warm.mu_lambda_c
     else:
@@ -168,14 +192,15 @@ def solve(qp: QPBatch, shape: ProblemShape,
     runs unless ``warm_start`` (or for an equality-constrained problem);
     ADMM runs unless the problem is purely equality-constrained.
 
-    Runs on ``device`` (default CUDA; raises when there is no card).
-    Returns ``(FCCQPSolution, WarmStart)`` of the single instance."""
+    Runs on ``device`` (default CUDA; raises when there is no card), in
+    the data's dtype (f32 or f64). Returns ``(FCCQPSolution, WarmStart)``
+    of the single instance."""
     dev = resolve_device(device)
-    qp1 = QPBatch(*(a[None] for a in
-                    qp.to(dev, torch.float64).__dict__.values()))
+    dt = compute_dtype(qp)
+    qp1 = QPBatch(*(a[None] for a in qp.to(dev, dt).__dict__.values()))
     w1 = None
     if warm is not None:
-        w = warm.to(dev, torch.float64)
+        w = warm.to(dev, dt)
         w1 = WarmStart(w.x[None], w.mu_x[None], w.mu_lambda_c[None])
     sol, ws = _solve_core(qp1, shape, opts, w1, warm_start)
     det = FCCQPDetails(**{k: v[0] for k, v in sol.details.__dict__.items()})
@@ -192,15 +217,17 @@ def solve_batched(qp: QPBatch, shape: ProblemShape,
     replacement for looping the reference's Solve. Each instance gets the
     result of its own serial solve.
 
-    Runs on ``device`` (default CUDA; raises when there is no card). The
-    operator build and the solve are timed apart: ``details.solve_time``
-    is the wall of the whole call and ``details.factorization_time`` the
-    operator build within it, each span ending in a device synchronize.
-    Returns ``(FCCQPSolution, WarmStart)``, batch-leading."""
+    Runs on ``device`` (default CUDA; raises when there is no card), in
+    the data's dtype (f32 or f64). The operator build and the solve are
+    timed apart: ``details.solve_time`` is the wall of the whole call and
+    ``details.factorization_time`` the operator build within it, each
+    span ending in a device synchronize. Returns ``(FCCQPSolution,
+    WarmStart)``, batch-leading."""
     dev = resolve_device(device)
-    qp = qp.to(dev, torch.float64)
+    dt = compute_dtype(qp)
+    qp = qp.to(dev, dt)
     if warm is not None:
-        warm = warm.to(dev, torch.float64)
+        warm = warm.to(dev, dt)
     sync(dev)
     t0 = time.perf_counter()
     operator = admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, opts.rho)
@@ -217,10 +244,10 @@ def replay(qps: QPBatch, shape: ProblemShape,
     """Sequential warm-started replay of a logged QP sequence (leading
     time axis T; a batch axis may follow it): step 0 cold, every later
     step warm-started from the one before, as the reference loop does
-    with ``set_warm_start(i > 0)``. Returns ``(solutions stacked over T,
-    final WarmStart)``."""
+    with ``set_warm_start(i > 0)``. Computes in the data's dtype (f32 or
+    f64). Returns ``(solutions stacked over T, final WarmStart)``."""
     dev = resolve_device(device)
-    qps = qps.to(dev, torch.float64)
+    qps = qps.to(dev, compute_dtype(qps))
     fields = list(qps.__dict__.values())
     single = qps.b.dim() == 2
     sols, ws = [], None

@@ -15,14 +15,24 @@
 // A third kernel, admm_chunk_full_f64 (below the first two), is
 // admm_chunk_pallas in the general layout of the full-splitting engine
 // and the f64 parity engine: all n variables, the cone segment wherever
-// it sits, box and cone duals apart.
+// it sits, box and cone duals apart; admm_chunk_full_f32 is the same in
+// f32 (the parity engine on f32 data).
+//
+// Every kernel takes the over-relaxation alpha at run time (the JAX
+// package runs alpha != 1 on its XLA chunk bodies only). The reduced
+// kernels have an instantiation without it (RELAX = false), chosen at
+// launch when alpha == 1, so the unrelaxed iteration keeps its registers;
+// the full layout chooses between two copies of its loop once per chunk.
 //
 // One iteration, per instance b (k constrained coordinates: kb box rows,
 // then nc = 3 * ncones cone rows; every array is batch-last, [row][b]):
 //   v      = s - mu
 //   x      = x_const + rho * (F^T v)       F j-major: y[i] = sum_j F[j][i] v[j]
-//   s_new  = [clip(x + mu)_box ; Pi_cone(x + mu)_cone]
-//   r      = x - s_new ;  mu += r
+//   x_hat  = alpha * x + (1 - alpha) * s   over-relaxation; x_hat = x when
+//                                          alpha == 1 (a branch the same
+//                                          for every lane)
+//   s_new  = [clip(x_hat + mu)_box ; Pi_cone(x_hat + mu)_cone]
+//   r      = x - s_new ;  mu += x_hat - s_new
 //   xrn / lrn = max |r| * w over box / cone rows (unscaled units)
 //   prim   = ||r * w||_2 ; dual = rho * ||(s_new - s) * w||_2
 //   conv   = lrn < eps_fcone && xrn < eps_bound
@@ -88,6 +98,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int KMAX = 96;   // three row slots of 32 lanes
@@ -133,6 +145,8 @@ struct ChunkArgs {
   T* dual_out;
   T eps_b;
   T eps_f;
+  T alpha;    // over-relaxation
+  int relax;  // alpha != 1
   int B;
   int k;
   int kb;
@@ -183,7 +197,9 @@ __device__ __forceinline__ T from_row(const T (&a)[NR], int row) {
   return v;
 }
 
-template <typename T, int NR>
+// RELAX: alpha != 1 (over-relaxation); the instantiation without it is
+// the unrelaxed iteration, and takes no register for it
+template <typename T, int NR, bool RELAX>
 __global__ void __launch_bounds__(warps_per_block<NR>() * 32)
     admm_chunk_warp(ChunkArgs<T> a) {
   // NR >= 2: each warp's k x k operator, [j][i]
@@ -236,6 +252,7 @@ __global__ void __launch_bounds__(warps_per_block<NR>() * 32)
   }
 
   const T rho = a.rho[b];
+  const T alpha = a.alpha, oma = T(1) - a.alpha;
   // per-row constants; a cone row c0 + pos (pos = 0, 1, 2 for fx, fy,
   // fz) keeps its cone's first row c0 and friction coefficient in lo
   bool box[NR];
@@ -328,11 +345,16 @@ __global__ void __launch_bounds__(warps_per_block<NR>() * 32)
       }
     }
 
-    T xn[NR], t[NR];
+    T xn[NR], xh[NR], t[NR];
 #pragma unroll
     for (int q = 0; q < NR; ++q) {
       xn[q] = xc[q] + rho * y[q];
-      t[q] = xn[q] + mu[q];
+      if constexpr (RELAX) {
+        xh[q] = alpha * xn[q] + oma * s[q];
+      } else {
+        xh[q] = xn[q];
+      }
+      t[q] = xh[q] + mu[q];
     }
 
     // projections: box rows clip; the three lanes of a cone fetch
@@ -403,7 +425,7 @@ __global__ void __launch_bounds__(warps_per_block<NR>() * 32)
 
 #pragma unroll
     for (int q = 0; q < NR; ++q) {
-      mu[q] = mu[q] + (xn[q] - sn[q]);
+      mu[q] = mu[q] + (xh[q] - sn[q]);
       x[q] = xn[q];
       s[q] = sn[q];
       v[q] = vn[q];
@@ -435,36 +457,45 @@ __global__ void __launch_bounds__(warps_per_block<NR>() * 32)
 
 // the block's shared memory for k rows, above the default 48 KB limit
 // only after the attribute is raised
-template <typename T, int NR>
+template <typename T, int NR, bool RELAX>
 int rows_prepare(int k, size_t* smem) {
   *smem = NR >= 2 ? (size_t)warps_per_block<NR>() * k * k * sizeof(T) : 0;
   if (*smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        admm_chunk_warp<T, NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)*smem);
+        admm_chunk_warp<T, NR, RELAX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-template <typename T, int NR>
-int launch_rows(const ChunkArgs<T>& a, cudaStream_t stream) {
+template <typename T, int NR, bool RELAX>
+int launch_rows_relax(const ChunkArgs<T>& a, cudaStream_t stream) {
   constexpr int W = warps_per_block<NR>();
   size_t smem;
-  const int e = rows_prepare<T, NR>(a.k, &smem);
+  const int e = rows_prepare<T, NR, RELAX>(a.k, &smem);
   if (e != 0) return e;
   const int blocks = (a.B + W - 1) / W;
-  admm_chunk_warp<T, NR><<<blocks, W * 32, smem, stream>>>(a);
+  admm_chunk_warp<T, NR, RELAX><<<blocks, W * 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int NR>
+int launch_rows(const ChunkArgs<T>& a, cudaStream_t stream) {
+  return a.relax ? launch_rows_relax<T, NR, true>(a, stream)
+                 : launch_rows_relax<T, NR, false>(a, stream);
+}
+
+// resident blocks per SM of the unrelaxed instantiation (the relaxed one's
+// may differ by its registers)
+template <typename T, int NR>
 int rows_occupancy_nr(int k, int* blocks) {
   size_t smem;
-  const int e = rows_prepare<T, NR>(k, &smem);
+  const int e = rows_prepare<T, NR, false>(k, &smem);
   if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, admm_chunk_warp<T, NR>, warps_per_block<NR>() * 32, smem);
+      blocks, admm_chunk_warp<T, NR, false>, warps_per_block<NR>() * 32,
+      smem);
 }
 
 template <typename T>
@@ -475,8 +506,8 @@ int rows_occupancy(int k, int* blocks) {
 }
 
 template <typename T>
-int launch(void* const* p, T eps_b, T eps_f, int B, int k, int kb, int K,
-           int max_iter, int inc_gate, void* stream) {
+int launch(void* const* p, T eps_b, T eps_f, T alpha, int B, int k, int kb,
+           int K, int max_iter, int inc_gate, void* stream) {
   if (k < 1 || k > KMAX || kb < 0 || kb > k || (k - kb) % 3 != 0 || B < 1)
     return (int)cudaErrorInvalidValue;
   ChunkArgs<T> a;
@@ -511,6 +542,8 @@ int launch(void* const* p, T eps_b, T eps_f, int B, int k, int kb, int K,
   a.dual_out = (T*)p[28];
   a.eps_b = eps_b;
   a.eps_f = eps_f;
+  a.alpha = alpha;
+  a.relax = alpha != T(1);
   a.B = B;
   a.k = k;
   a.kb = kb;
@@ -524,19 +557,25 @@ int launch(void* const* p, T eps_b, T eps_f, int B, int k, int kb, int K,
 }
 
 // --------------------------------------------------------------------------
-// admm_chunk_full_f64: the general (full-splitting) layout of
-// fcc_qp_tpu/ops/pallas_admm.py::admm_chunk_pallas (Pallas body `_kernel`),
-// the layout the full-splitting engine and the f64 parity engine call it in.
+// admm_chunk_full_f64 / admm_chunk_full_f32: the general (full-splitting)
+// layout of fcc_qp_tpu/ops/pallas_admm.py::admm_chunk_pallas (Pallas body
+// `_kernel`), the layout the full-splitting engine, the f64 parity engine
+// and the batch-level engine (solve_batched_fast) call it in; f32 for the
+// parity engine on f32 data.
 //
 // One iteration, per instance b (n variables; the cone segment is rows
 // [ls, ls + nc) wherever it sits; every array batch-last, [row][b]):
 //   s_prev = x_bar with the segment replaced by lam_bar
 //   v      = s_prev - (mu_x with the segment replaced by mu_lam)
 //   x      = x_const + rho * (F^T v)
-//   x_bar  = clip(x + mu_x, lb, ub)            on ALL n rows, cone rows too
-//   lam_bar= Pi_cone(seg(x) + mu_lam)          the segment's own slack
+//   x_hat  = alpha * x + (1 - alpha) * s_prev  (x_hat = x when alpha == 1,
+//                                              a branch the same for
+//                                              every lane)
+//   x_bar  = clip(x_hat + mu_x, lb, ub)        on ALL n rows, cone rows too
+//   lam_bar= Pi_cone(seg(x_hat) + mu_lam)      the segment's own slack
 //   r_x = x - x_bar (n rows), r_l = seg(x) - lam_bar (nc rows)
-//   mu_x += r_x ; mu_lam += r_l                 the box and cone duals apart
+//   mu_x += x_hat - x_bar ; mu_lam += seg(x_hat) - lam_bar
+//                                              the box and cone duals apart
 //   xrn = max |r_x|, lrn = max |r_l| (unit weights: unscaled problems)
 //   prim = ||x - s_now||_2, dual = rho ||s_now - s_prev||_2 (s_now likewise)
 //   conv = lrn < eps_f && xrn < eps_b, and with the increment gate
@@ -591,43 +630,49 @@ int launch(void* const* p, T eps_b, T eps_f, int B, int k, int kb, int K,
 //     every row's test; with eps > 0, max < eps <=> every row < eps.
 //   * Same arithmetic in the same order as the plain version, no FMA:
 //     bit-equal state, counters and max-norms.
+//   * One template over the scalar type: the f32 instantiation keeps the
+//     f64 one's layout (the same register and shared columns, in 4-byte
+//     words, copied with 4-byte cp.async).
 // --------------------------------------------------------------------------
 
+template <typename T>
 struct FullArgs {
-  const double* F;      // (n, n, B) j-major operator
-  const double* xc;     // (n, B)
-  const double* lb;     // (n, B)
-  const double* ub;
-  const double* muf;    // (max(nc/3, 1), B)
-  const double* rho;    // (B,)
-  const double* x_in;   // (n, B)
-  const double* xb_in;  // (n, B)
-  const double* lam_in; // (max(nc, 1), B)
-  const double* mux_in; // (n, B)
-  const double* mul_in; // (max(nc, 1), B)
-  const double* v_in;   // (n, B)
+  const T* F;      // (n, n, B) j-major operator
+  const T* xc;     // (n, B)
+  const T* lb;     // (n, B)
+  const T* ub;
+  const T* muf;    // (max(nc/3, 1), B)
+  const T* rho;    // (B,)
+  const T* x_in;   // (n, B)
+  const T* xb_in;  // (n, B)
+  const T* lam_in; // (max(nc, 1), B)
+  const T* mux_in; // (n, B)
+  const T* mul_in; // (max(nc, 1), B)
+  const T* v_in;   // (n, B)
   const int* done_in;   // (B,)
   const int* niter_in;
   const int* itv_in;
-  const double* xrn_in;
-  const double* lrn_in;
-  const double* prim_in;
-  const double* dual_in;
-  double* x_out;
-  double* xb_out;
-  double* lam_out;
-  double* mux_out;
-  double* mul_out;
-  double* v_out;
+  const T* xrn_in;
+  const T* lrn_in;
+  const T* prim_in;
+  const T* dual_in;
+  T* x_out;
+  T* xb_out;
+  T* lam_out;
+  T* mux_out;
+  T* mul_out;
+  T* v_out;
   int* done_out;
   int* niter_out;
   int* itv_out;
-  double* xrn_out;
-  double* lrn_out;
-  double* prim_out;
-  double* dual_out;
-  double eps_b;
-  double eps_f;
+  T* xrn_out;
+  T* lrn_out;
+  T* prim_out;
+  T* dual_out;
+  T eps_b;
+  T eps_f;
+  T alpha;    // over-relaxation
+  int relax;  // alpha != 1
   int B;
   int n;
   int nc;
@@ -660,7 +705,7 @@ __host__ __device__ inline int full_cols(int n) {
   return c > full_always<NR>() ? c : full_always<NR>();
 }
 
-// doubles of one warp's operator region at the row stride 32 * NR: the
+// words of one warp's operator region at the row stride 32 * NR: the
 // shared columns JR <= j < full_cols(n), or the register columns while
 // they are staged there, whichever is more
 template <int NR>
@@ -673,9 +718,9 @@ __host__ __device__ inline int full_fsz(int n) {
 
 // one warp's dynamic shared memory: four vectors of 32 * NR rows, then
 // the operator region
-template <int NR>
+template <typename T, int NR>
 size_t full_warp_bytes(int n) {
-  return (size_t)(4 * 32 * NR + full_fsz<NR>(n)) * sizeof(double);
+  return (size_t)(4 * 32 * NR + full_fsz<NR>(n)) * sizeof(T);
 }
 
 // the dynamic shared memory a block may request on sm_90
@@ -684,17 +729,36 @@ constexpr size_t kSmemOptin = 227 * 1024;
 // instances (warps) per block of the full-layout kernel: four, so that a
 // 32-byte sector of the operator serves one block, where their four
 // operators fit in a block's shared memory (every n <= 80); two above
-template <int NR>
+template <typename T, int NR>
 int full_warps(int n) {
-  return 4 * full_warp_bytes<NR>(n) <= kSmemOptin ? 4 : 2;
+  return 4 * full_warp_bytes<T, NR>(n) <= kSmemOptin ? 4 : 2;
 }
 
-__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+// one word, global to shared, asynchronously
+__device__ __forceinline__ void cp_async(double* dst, const double* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
                "l"(src)
                : "memory");
 }
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// two neighbouring words of a shared vector in one load
+template <typename T>
+struct Pair;
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+template <>
+struct Pair<float> {
+  using type = float2;
+};
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -703,36 +767,36 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // the projection of a cone row's value t onto its cone, given the
 // cone's (fx, fy, fz), friction coefficient m, den = m * m + 1 and the
 // row's place in the triple: the plain version's operations in order
-__device__ __forceinline__ double cone_row(double t, double fx, double fy,
-                                           double fz, double m, double den,
-                                           int pos) {
-  const double norm = sqrt(fx * fx + fy * fy);
-  const bool inside = m * fz - norm >= 0.0;
-  const bool polar = fz + m * norm < 0.0;
-  const double tt = (m * norm + fz) / den;
-  const double safe = norm > 0.0 ? norm : 1.0;
-  const double sc = tt * m / safe;
-  const double surf = pos == 2 ? tt : sc * t;
-  return inside ? t : (polar ? 0.0 : surf);
+template <typename T>
+__device__ __forceinline__ T cone_row(T t, T fx, T fy, T fz, T m, T den,
+                                      int pos) {
+  const T norm = tsqrt<T>(fx * fx + fy * fy);
+  const bool inside = m * fz - norm >= T(0);
+  const bool polar = fz + m * norm < T(0);
+  const T tt = (m * norm + fz) / den;
+  const T safe = norm > T(0) ? norm : T(1);
+  const T sc = tt * m / safe;
+  const T surf = pos == 2 ? tt : sc * t;
+  return inside ? t : (polar ? T(0) : surf);
 }
 
 // y[q] (+)= sum over the columns j in [J0, J1) of F[j][row q] * v[j], in
 // ascending j and groups of 8 whose loads issue ahead of their adds; the
 // first JR columns come from registers, the rest from the warp's shared
 // columns (Fl: this lane's row in column JR, row stride 32 * NR)
-template <int NR, int JR, int J0, int J1>
-__device__ __forceinline__ void full_matvec(double (&y)[NR],
-                                            const double (&fr)[NR][JR],
-                                            const double* Fl,
-                                            const double* vs) {
+template <typename T, int NR, int JR, int J0, int J1>
+__device__ __forceinline__ void full_matvec(T (&y)[NR],
+                                            const T (&fr)[NR][JR],
+                                            const T* Fl, const T* vs) {
   constexpr int G = 8;
   static_assert(J0 % G == 0 && J1 % G == 0, "groups of 8 columns");
 #pragma unroll
   for (int j0 = J0; j0 < J1; j0 += G) {
-    double vj[G], f[G][NR];
+    T vj[G], f[G][NR];
 #pragma unroll
     for (int u = 0; u < G; u += 2) {
-      const double2 p = *reinterpret_cast<const double2*>(vs + j0 + u);
+      const typename Pair<T>::type p =
+          *reinterpret_cast<const typename Pair<T>::type*>(vs + j0 + u);
       vj[u] = p.x;
       vj[u + 1] = p.y;
     }
@@ -748,15 +812,15 @@ __device__ __forceinline__ void full_matvec(double (&y)[NR],
     for (int u = 0; u < G; ++u)
 #pragma unroll
       for (int q = 0; q < NR; ++q) {
-        const double p = f[u][q] * vj[u];
+        const T p = f[u][q] * vj[u];
         y[q] = j0 + u == 0 ? p : y[q] + p;
       }
   }
 }
 
-// blockDim.x = 32 W, W = full_warps<NR>(n) instances a block (2 or 4)
-template <int NR>
-__global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
+// blockDim.x = 32 W, W = full_warps<T, NR>(n) instances a block (2 or 4)
+template <typename T, int NR>
+__global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs<T> a) {
   constexpr int JR = full_jr<NR>();
   constexpr int ROWS = 32 * NR;
   const int W = blockDim.x >> 5;
@@ -771,11 +835,11 @@ __global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
   const int b = b0 + warp;
   const int B = a.B, n = a.n, nc = a.nc, ls = a.ls;
   const int wsz = 4 * ROWS + full_fsz<NR>(n);
-  double* vs = reinterpret_cast<double*>(smem_raw) + warp * wsz;  // v
-  double* ts = vs + ROWS;  // seg(x) + mu_lam
-  double* ps = ts + ROWS;  // 2-norm terms
-  double* qs = ps + ROWS;
-  double* Fs = qs + ROWS;  // the operator region, [j][row], stride ROWS
+  T* vs = reinterpret_cast<T*>(smem_raw) + warp * wsz;  // v
+  T* ts = vs + ROWS;  // seg(x) + mu_lam
+  T* ps = ts + ROWS;  // 2-norm terms
+  T* qs = ps + ROWS;
+  T* Fs = qs + ROWS;  // the operator region, [j][row], stride ROWS
   const bool idle = b >= B || a.done_in[b] != 0 ||
                     a.itv_in[b] >= a.max_iter || a.K < 1;
 
@@ -792,18 +856,18 @@ __global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
   const bool load_d = bd < B && a.done_in[bd] == 0 &&
                       a.itv_in[bd] < a.max_iter && a.K >= 1;
   const bool any = __syncthreads_or(load_d) != 0;
-  double fr[NR][JR];
+  T fr[NR][JR];
   if (any) {
-    double* Fd = reinterpret_cast<double*>(smem_raw) + d * wsz + 4 * ROWS;
+    T* Fd = reinterpret_cast<T*>(smem_raw) + d * wsz + 4 * ROWS;
     const size_t step = (size_t)n * B;               // one column
-    const double* col = a.F + bd + (size_t)pr * B;  // row pr, column 0
+    const T* col = a.F + bd + (size_t)pr * B;  // row pr, column 0
     const int j1 = JR < n ? JR : n;
     if (load_d)
       for (int j = 0; j < j1; ++j, col += step)
 #pragma unroll
         for (int q = 0; q < NR; ++q)
           if (pr + 32 * q < n)
-            cp_async8(Fd + j * ROWS + pr + 32 * q, col + (size_t)32 * q * B);
+            cp_async(Fd + j * ROWS + pr + 32 * q, col + (size_t)32 * q * B);
     cp_async_wait_all();
     __syncthreads();
     if (!idle) {
@@ -812,7 +876,7 @@ __global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
 #pragma unroll
         for (int j = 0; j < JR; ++j) {
           const int r = lane + 32 * q;
-          fr[q][j] = (j < n && r < n) ? Fs[j * ROWS + r] : 0.0;
+          fr[q][j] = (j < n && r < n) ? Fs[j * ROWS + r] : T(0);
         }
     }
     __syncthreads();
@@ -821,14 +885,14 @@ __global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
 #pragma unroll
         for (int q = 0; q < NR; ++q)
           if (pr + 32 * q < n)
-            cp_async8(Fd + (j - JR) * ROWS + pr + 32 * q,
+            cp_async(Fd + (j - JR) * ROWS + pr + 32 * q,
                       col + (size_t)32 * q * B);
     // the mat-vec's padding: the shared columns from n to full_cols(n)
     // hold +0 (the register columns past n already do)
     if (!idle)
       for (int j = n > JR ? n : JR; j < full_cols<NR>(n); ++j)
 #pragma unroll
-        for (int q = 0; q < NR; ++q) Fs[(j - JR) * ROWS + 32 * q + lane] = 0.0;
+        for (int q = 0; q < NR; ++q) Fs[(j - JR) * ROWS + 32 * q + lane] = T(0);
   }
 
   // rows and the state: iterated below, or copied through by an idle
@@ -836,7 +900,7 @@ __global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
   // compiler sees through `valid`.
   int row[NR], cr[NR];
   bool valid[NR], cone[NR];
-  double x[NR], xb[NR], mux[NR], lam[NR], mul[NR];
+  T x[NR], xb[NR], mux[NR], lam[NR], mul[NR];
   const bool live = b < B;
 #pragma unroll
   for (int q = 0; q < NR; ++q) {
@@ -846,11 +910,11 @@ __global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
     cone[q] = valid[q] && cr[q] >= 0 && cr[q] < nc;
     const size_t o = (size_t)row[q] * B + b;
     const size_t oc = (size_t)(cone[q] ? cr[q] : 0) * B + b;
-    x[q] = live && valid[q] ? a.x_in[o] : 0.0;
-    xb[q] = live && valid[q] ? a.xb_in[o] : 0.0;
-    mux[q] = live && valid[q] ? a.mux_in[o] : 0.0;
-    lam[q] = live && cone[q] ? a.lam_in[oc] : 0.0;
-    mul[q] = live && cone[q] ? a.mul_in[oc] : 0.0;
+    x[q] = live && valid[q] ? a.x_in[o] : T(0);
+    xb[q] = live && valid[q] ? a.xb_in[o] : T(0);
+    mux[q] = live && valid[q] ? a.mux_in[o] : T(0);
+    lam[q] = live && cone[q] ? a.lam_in[oc] : T(0);
+    mul[q] = live && cone[q] ? a.mul_in[oc] : T(0);
   }
   if (any) {
     cp_async_wait_all();
@@ -886,27 +950,28 @@ __global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
     return;
   }
 
-  const double rho = a.rho[b];
+  const T rho = a.rho[b];
+  const T alpha = a.alpha, oma = T(1) - a.alpha;
   // per-row constants; a cone row keeps its triple's first row c0, its
   // place in the triple, the cone's friction coefficient m and m * m + 1
   int c0[NR], pos[NR];
-  double xc[NR], lo[NR], hi[NR], mf[NR], den[NR];
+  T xc[NR], lo[NR], hi[NR], mf[NR], den[NR];
 #pragma unroll
   for (int q = 0; q < NR; ++q) {
     const size_t o = (size_t)row[q] * B + b;
-    xc[q] = valid[q] ? a.xc[o] : 0.0;
-    lo[q] = valid[q] ? a.lb[o] : 0.0;
-    hi[q] = valid[q] ? a.ub[o] : 0.0;
+    xc[q] = valid[q] ? a.xc[o] : T(0);
+    lo[q] = valid[q] ? a.lb[o] : T(0);
+    hi[q] = valid[q] ? a.ub[o] : T(0);
     c0[q] = row[q];
     pos[q] = 0;
-    mf[q] = 0.0;
+    mf[q] = T(0);
     if (cone[q]) {
       const int c = cr[q] / 3;
       c0[q] = ls + 3 * c;
       pos[q] = row[q] - c0[q];
       mf[q] = a.muf[(size_t)c * B + b];
     }
-    den[q] = mf[q] * mf[q] + 1.0;
+    den[q] = mf[q] * mf[q] + T(1);
   }
   // with nc <= 32 (every model) a lane owns at most one cone row, in
   // slot cq, and projects once an iteration
@@ -922,131 +987,152 @@ __global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
   int niter = a.niter_in[b];
   int itv = a.itv_in[b];
   int done = 0;
-  for (int it = 0; it < a.K; ++it) {
-    // v into the shared vector; rows >= n hold -0 (the mat-vec's padding)
-#pragma unroll
-    for (int q = 0; q < NR; ++q)
-      vs[row[q]] = valid[q] ? (cone[q] ? lam[q] : xb[q]) -
-                                  (cone[q] ? mul[q] : mux[q])
-                            : -0.0;
-    __syncwarp();
-
-    // y = F^T v, over j ascending from F[0][i] v[0]: the first
-    // 32 (NR - 1) + 16 columns always, the last 16 only when n reaches
-    // them. A column j >= n in that range adds F = +0 times v = -0, that
-    // is -0, which leaves every y (+0 and -0 included) as it is.
-    double y[NR];
-    full_matvec<NR, JR, 0, H>(y, fr, Fs + lane, vs);
-    if (n > H) full_matvec<NR, JR, H, ROWS>(y, fr, Fs + lane, vs);
-
-    double xn[NR];
-#pragma unroll
-    for (int q = 0; q < NR; ++q) {
-      xn[q] = xc[q] + rho * y[q];
-      if (cone[q]) ts[row[q]] = xn[q] + mul[q];
-    }
-    __syncwarp();
-
-    // projections: every row clips x + mu_x; a cone row projects its
-    // triple, gathered from the shared vector
-    double xbn[NR], lamn[NR];
-#pragma unroll
-    for (int q = 0; q < NR; ++q) {
-      xbn[q] = tclip(xn[q] + mux[q], lo[q], hi[q]);
-      lamn[q] = 0.0;
-    }
-    if (ncq == 1) {
-      double t = 0.0, m = 0.0, dn = 1.0;
-      int cc = 0, pp = 0;
-#pragma unroll
-      for (int q = 0; q < NR; ++q) {
-        if (q == cq) {
-          t = xn[q] + mul[q];
-          m = mf[q];
-          dn = den[q];
-          cc = c0[q];
-          pp = pos[q];
-        }
+  // The iterations, in two copies chosen once for the chunk: with
+  // over-relaxation (alpha != 1) and without, so that alpha == 1 runs no
+  // instruction of it. x_hat of row q comes from its x and its s_prev
+  // (lam on a cone row, x_bar elsewhere), recomputed where it is read
+  // (the same operations each time) so that it holds no registers.
+  auto iterate = [&](auto relax_tag) {
+    constexpr bool kRelax = decltype(relax_tag)::value;
+    auto relaxed = [&](T xq, T sp) -> T {
+      if constexpr (kRelax) {
+        return alpha * xq + oma * sp;
+      } else {
+        return xq;
       }
-      const double l = cone_row(t, ts[cc], ts[cc + 1], ts[cc + 2], m, dn, pp);
+    };
+    for (int it = 0; it < a.K; ++it) {
+      // v into the shared vector; rows >= n hold -0 (the mat-vec's padding)
 #pragma unroll
       for (int q = 0; q < NR; ++q)
-        if (q == cq) lamn[q] = l;
-    } else if (ncq > 1) {
-#pragma unroll
-      for (int q = 0; q < NR; ++q)
-        if (cone[q])
-          lamn[q] = cone_row(xn[q] + mul[q], ts[c0[q]], ts[c0[q] + 1],
-                             ts[c0[q] + 2], mf[q], den[q], pos[q]);
-    }
-    bool ok = true;
-#pragma unroll
-    for (int q = 0; q < NR; ++q) {
-      if (valid[q]) {
-        const double dx = tabs(xn[q] - x[q]);
-        ok = ok && tabs(xn[q] - xbn[q]) < a.eps_b;
-        if (cone[q]) {
-          ok = ok && tabs(xn[q] - lamn[q]) < a.eps_f;
-          if (a.gate != 0) ok = ok && dx < a.eps_f;
-          if (a.gate == 2) ok = ok && dx < a.eps_b;
-        } else if (a.gate != 0) {
-          ok = ok && dx < a.eps_b;
-        }
-      }
-    }
-    // max over a row set < eps  <=>  every row < eps (and eps > 0, for
-    // an empty set, whose max is 0)
-    const bool conv = __all_sync(kFull, ok) && 0.0 < a.eps_b && 0.0 < a.eps_f;
-
-    if (conv || it + 1 == a.K || itv + 1 >= a.max_iter) {
-      // the instance's last iteration in this chunk: its residual norms
-      double bx = 0.0, cx = 0.0;
-#pragma unroll
-      for (int q = 0; q < NR; ++q) {
-        const double sn = cone[q] ? lamn[q] : xbn[q];
-        const double sp = cone[q] ? lam[q] : xb[q];
-        if (valid[q]) bx = tmax(bx, tabs(xn[q] - xbn[q]));
-        if (cone[q]) cx = tmax(cx, tabs(xn[q] - lamn[q]));
-        const double dp = xn[q] - sn;
-        const double dc = sn - sp;
-        ps[row[q]] = valid[q] ? dp * dp : 0.0;
-        qs[row[q]] = valid[q] ? dc * dc : 0.0;
-      }
-      bx = warp_max(bx);
-      cx = warp_max(cx);
+        vs[row[q]] = valid[q] ? (cone[q] ? lam[q] : xb[q]) -
+                                    (cone[q] ? mul[q] : mux[q])
+                              : T(-0.0);
       __syncwarp();
-      if (lane == 0) {
-        // rows >= n hold +0, which leaves a sum of squares as it is
-        double pp = 0.0, dd = 0.0;
+
+      // y = F^T v, over j ascending from F[0][i] v[0]: the first
+      // 32 (NR - 1) + 16 columns always, the last 16 only when n reaches
+      // them. A column j >= n in that range adds F = +0 times v = -0, that
+      // is -0, which leaves every y (+0 and -0 included) as it is.
+      T y[NR];
+      full_matvec<T, NR, JR, 0, H>(y, fr, Fs + lane, vs);
+      if (n > H) full_matvec<T, NR, JR, H, ROWS>(y, fr, Fs + lane, vs);
+
+      T xn[NR];
 #pragma unroll
-        for (int rr = 0; rr < ROWS; ++rr) {
-          pp = pp + ps[rr];
-          dd = dd + qs[rr];
-        }
-        a.xrn_out[b] = bx;
-        a.lrn_out[b] = cx;
-        a.prim_out[b] = sqrt(pp);
-        a.dual_out[b] = rho * sqrt(dd);
+      for (int q = 0; q < NR; ++q) {
+        xn[q] = xc[q] + rho * y[q];
+        if (cone[q]) ts[row[q]] = relaxed(xn[q], lam[q]) + mul[q];
       }
-    }
+      __syncwarp();
+
+      // projections: every row clips x_hat + mu_x; a cone row projects its
+      // triple, gathered from the shared vector
+      T xbn[NR], lamn[NR];
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        xbn[q] = tclip(relaxed(xn[q], cone[q] ? lam[q] : xb[q]) + mux[q],
+                       lo[q], hi[q]);
+        lamn[q] = T(0);
+      }
+      if (ncq == 1) {
+        T t = T(0), m = T(0), dn = T(1);
+        int cc = 0, pp = 0;
+#pragma unroll
+        for (int q = 0; q < NR; ++q) {
+          if (q == cq) {
+            t = relaxed(xn[q], lam[q]) + mul[q];
+            m = mf[q];
+            dn = den[q];
+            cc = c0[q];
+            pp = pos[q];
+          }
+        }
+        const T l = cone_row(t, ts[cc], ts[cc + 1], ts[cc + 2], m, dn, pp);
+#pragma unroll
+        for (int q = 0; q < NR; ++q)
+          if (q == cq) lamn[q] = l;
+      } else if (ncq > 1) {
+#pragma unroll
+        for (int q = 0; q < NR; ++q)
+          if (cone[q])
+            lamn[q] = cone_row(relaxed(xn[q], lam[q]) + mul[q], ts[c0[q]],
+                               ts[c0[q] + 1],
+                               ts[c0[q] + 2], mf[q], den[q], pos[q]);
+      }
+      bool ok = true;
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        if (valid[q]) {
+          const T dx = tabs(xn[q] - x[q]);
+          ok = ok && tabs(xn[q] - xbn[q]) < a.eps_b;
+          if (cone[q]) {
+            ok = ok && tabs(xn[q] - lamn[q]) < a.eps_f;
+            if (a.gate != 0) ok = ok && dx < a.eps_f;
+            if (a.gate == 2) ok = ok && dx < a.eps_b;
+          } else if (a.gate != 0) {
+            ok = ok && dx < a.eps_b;
+          }
+        }
+      }
+      // max over a row set < eps  <=>  every row < eps (and eps > 0, for
+      // an empty set, whose max is 0)
+      const bool conv = __all_sync(kFull, ok) && T(0) < a.eps_b && T(0) < a.eps_f;
+
+      if (conv || it + 1 == a.K || itv + 1 >= a.max_iter) {
+        // the instance's last iteration in this chunk: its residual norms
+        T bx = T(0), cx = T(0);
+#pragma unroll
+        for (int q = 0; q < NR; ++q) {
+          const T sn = cone[q] ? lamn[q] : xbn[q];
+          const T sp = cone[q] ? lam[q] : xb[q];
+          if (valid[q]) bx = tmax(bx, tabs(xn[q] - xbn[q]));
+          if (cone[q]) cx = tmax(cx, tabs(xn[q] - lamn[q]));
+          const T dp = xn[q] - sn;
+          const T dc = sn - sp;
+          ps[row[q]] = valid[q] ? dp * dp : T(0);
+          qs[row[q]] = valid[q] ? dc * dc : T(0);
+        }
+        bx = warp_max(bx);
+        cx = warp_max(cx);
+        __syncwarp();
+        if (lane == 0) {
+          // rows >= n hold +0, which leaves a sum of squares as it is
+          T pp = T(0), dd = T(0);
+#pragma unroll
+          for (int rr = 0; rr < ROWS; ++rr) {
+            pp = pp + ps[rr];
+            dd = dd + qs[rr];
+          }
+          a.xrn_out[b] = bx;
+          a.lrn_out[b] = cx;
+          a.prim_out[b] = tsqrt<T>(pp);
+          a.dual_out[b] = rho * tsqrt<T>(dd);
+        }
+      }
 
 #pragma unroll
-    for (int q = 0; q < NR; ++q) {
-      mux[q] = mux[q] + (xn[q] - xbn[q]);
-      if (cone[q]) {
-        mul[q] = mul[q] + (xn[q] - lamn[q]);
-        lam[q] = lamn[q];
+      for (int q = 0; q < NR; ++q) {
+        mux[q] = mux[q] + (relaxed(xn[q], cone[q] ? lam[q] : xb[q]) - xbn[q]);
+        if (cone[q]) {
+          mul[q] = mul[q] + (relaxed(xn[q], lam[q]) - lamn[q]);
+          lam[q] = lamn[q];
+        }
+        x[q] = xn[q];
+        xb[q] = xbn[q];
       }
-      x[q] = xn[q];
-      xb[q] = xbn[q];
+      if (conv) {
+        niter = itv;
+        done = 1;
+      }
+      itv = itv + 1;
+      if (done != 0 || itv >= a.max_iter) break;
     }
-    if (conv) {
-      niter = itv;
-      done = 1;
-    }
-    itv = itv + 1;
-    if (done != 0 || itv >= a.max_iter) break;
-  }
+  };
+  if (a.relax != 0)
+    iterate(std::true_type{});
+  else
+    iterate(std::false_type{});
 
   // v is the last iteration's, still in the shared vector (each lane
   // reads the rows it wrote)
@@ -1074,84 +1160,88 @@ __global__ void __launch_bounds__(128) admm_chunk_full_warp(FullArgs a) {
 
 // the block's shared memory for n rows, above the default 48 KB limit
 // only after the attribute is raised
-template <int NR>
+template <typename T, int NR>
 int full_prepare(int n, size_t* smem) {
-  *smem = full_warps<NR>(n) * full_warp_bytes<NR>(n);
+  *smem = full_warps<T, NR>(n) * full_warp_bytes<T, NR>(n);
   if (*smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        admm_chunk_full_warp<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)*smem);
+        admm_chunk_full_warp<T, NR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-template <int NR>
-int launch_full_rows(const FullArgs& a, cudaStream_t s) {
+template <typename T, int NR>
+int launch_full_rows(const FullArgs<T>& a, cudaStream_t s) {
   size_t smem;
-  const int e = full_prepare<NR>(a.n, &smem);
+  const int e = full_prepare<T, NR>(a.n, &smem);
   if (e != 0) return e;
-  const int W = full_warps<NR>(a.n);
+  const int W = full_warps<T, NR>(a.n);
   const int blocks = (a.B + W - 1) / W;
-  admm_chunk_full_warp<NR><<<blocks, W * 32, smem, s>>>(a);
+  admm_chunk_full_warp<T, NR><<<blocks, W * 32, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int NR>
+template <typename T, int NR>
 int full_occupancy_nr(int n, int* blocks) {
   size_t smem;
-  const int e = full_prepare<NR>(n, &smem);
+  const int e = full_prepare<T, NR>(n, &smem);
   if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, admm_chunk_full_warp<NR>, full_warps<NR>(n) * 32, smem);
+      blocks, admm_chunk_full_warp<T, NR>, full_warps<T, NR>(n) * 32, smem);
 }
 
+template <typename T>
 int full_occupancy(int n, int* blocks) {
-  if (n <= 32) return full_occupancy_nr<1>(n, blocks);
-  if (n <= 64) return full_occupancy_nr<2>(n, blocks);
-  return full_occupancy_nr<3>(n, blocks);
+  if (n <= 32) return full_occupancy_nr<T, 1>(n, blocks);
+  if (n <= 64) return full_occupancy_nr<T, 2>(n, blocks);
+  return full_occupancy_nr<T, 3>(n, blocks);
 }
 
-int launch_full(void* const* p, double eps_b, double eps_f, int B, int n,
+template <typename T>
+int launch_full(void* const* p, T eps_b, T eps_f, T alpha, int B, int n,
                 int nc, int ls, int K, int max_iter, int gate, void* stream) {
   if (n < 1 || n > KMAX || nc < 0 || nc % 3 != 0 || ls < 0 || ls + nc > n ||
       B < 1 || gate < 0 || gate > 2)
     return (int)cudaErrorInvalidValue;
-  FullArgs a;
-  a.F = (const double*)p[0];
-  a.xc = (const double*)p[1];
-  a.lb = (const double*)p[2];
-  a.ub = (const double*)p[3];
-  a.muf = (const double*)p[4];
-  a.rho = (const double*)p[5];
-  a.x_in = (const double*)p[6];
-  a.xb_in = (const double*)p[7];
-  a.lam_in = (const double*)p[8];
-  a.mux_in = (const double*)p[9];
-  a.mul_in = (const double*)p[10];
-  a.v_in = (const double*)p[11];
+  FullArgs<T> a;
+  a.F = (const T*)p[0];
+  a.xc = (const T*)p[1];
+  a.lb = (const T*)p[2];
+  a.ub = (const T*)p[3];
+  a.muf = (const T*)p[4];
+  a.rho = (const T*)p[5];
+  a.x_in = (const T*)p[6];
+  a.xb_in = (const T*)p[7];
+  a.lam_in = (const T*)p[8];
+  a.mux_in = (const T*)p[9];
+  a.mul_in = (const T*)p[10];
+  a.v_in = (const T*)p[11];
   a.done_in = (const int*)p[12];
   a.niter_in = (const int*)p[13];
   a.itv_in = (const int*)p[14];
-  a.xrn_in = (const double*)p[15];
-  a.lrn_in = (const double*)p[16];
-  a.prim_in = (const double*)p[17];
-  a.dual_in = (const double*)p[18];
-  a.x_out = (double*)p[19];
-  a.xb_out = (double*)p[20];
-  a.lam_out = (double*)p[21];
-  a.mux_out = (double*)p[22];
-  a.mul_out = (double*)p[23];
-  a.v_out = (double*)p[24];
+  a.xrn_in = (const T*)p[15];
+  a.lrn_in = (const T*)p[16];
+  a.prim_in = (const T*)p[17];
+  a.dual_in = (const T*)p[18];
+  a.x_out = (T*)p[19];
+  a.xb_out = (T*)p[20];
+  a.lam_out = (T*)p[21];
+  a.mux_out = (T*)p[22];
+  a.mul_out = (T*)p[23];
+  a.v_out = (T*)p[24];
   a.done_out = (int*)p[25];
   a.niter_out = (int*)p[26];
   a.itv_out = (int*)p[27];
-  a.xrn_out = (double*)p[28];
-  a.lrn_out = (double*)p[29];
-  a.prim_out = (double*)p[30];
-  a.dual_out = (double*)p[31];
+  a.xrn_out = (T*)p[28];
+  a.lrn_out = (T*)p[29];
+  a.prim_out = (T*)p[30];
+  a.dual_out = (T*)p[31];
   a.eps_b = eps_b;
   a.eps_f = eps_f;
+  a.alpha = alpha;
+  a.relax = alpha != T(1);
   a.B = B;
   a.n = n;
   a.nc = nc;
@@ -1160,49 +1250,63 @@ int launch_full(void* const* p, double eps_b, double eps_f, int B, int n,
   a.max_iter = max_iter;
   a.gate = gate;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (n <= 32) return launch_full_rows<1>(a, s);
-  if (n <= 64) return launch_full_rows<2>(a, s);
-  return launch_full_rows<3>(a, s);
+  if (n <= 32) return launch_full_rows<T, 1>(a, s);
+  if (n <= 64) return launch_full_rows<T, 2>(a, s);
+  return launch_full_rows<T, 3>(a, s);
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). `ptrs` holds the 29 device
-// pointers in ChunkArgs order; returns the cudaError_t of the launch.
+// pointers in ChunkArgs order; `alpha` is the over-relaxation (1: none).
+// Returns the cudaError_t of the launch.
 extern "C" int admm_chunk_f64(void* const* ptrs, double eps_b, double eps_f,
-                              int B, int k, int kb, int K, int max_iter,
-                              int inc_gate, void* stream) {
-  return launch<double>(ptrs, eps_b, eps_f, B, k, kb, K, max_iter, inc_gate,
-                        stream);
+                              double alpha, int B, int k, int kb, int K,
+                              int max_iter, int inc_gate, void* stream) {
+  return launch<double>(ptrs, eps_b, eps_f, alpha, B, k, kb, K, max_iter,
+                        inc_gate, stream);
 }
 
 extern "C" int admm_chunk_f32(void* const* ptrs, float eps_b, float eps_f,
-                              int B, int k, int kb, int K, int max_iter,
-                              void* stream) {
-  return launch<float>(ptrs, eps_b, eps_f, B, k, kb, K, max_iter, 0, stream);
+                              float alpha, int B, int k, int kb, int K,
+                              int max_iter, void* stream) {
+  return launch<float>(ptrs, eps_b, eps_f, alpha, B, k, kb, K, max_iter, 0,
+                       stream);
 }
 
 // `ptrs` holds the 32 device pointers in FullArgs order; gate 0 (off),
 // 1 (ds engine: non-cone rows / segment) or 2 (f64 engine: all rows /
 // segment). Returns the cudaError_t of the launch.
 extern "C" int admm_chunk_full_f64(void* const* ptrs, double eps_b,
-                                   double eps_f, int B, int n, int nc, int ls,
-                                   int K, int max_iter, int gate,
-                                   void* stream) {
-  return launch_full(ptrs, eps_b, eps_f, B, n, nc, ls, K, max_iter, gate,
-                     stream);
+                                   double eps_f, double alpha, int B, int n,
+                                   int nc, int ls, int K, int max_iter,
+                                   int gate, void* stream) {
+  return launch_full<double>(ptrs, eps_b, eps_f, alpha, B, n, nc, ls, K,
+                             max_iter, gate, stream);
+}
+
+extern "C" int admm_chunk_full_f32(void* const* ptrs, float eps_b,
+                                   float eps_f, float alpha, int B, int n,
+                                   int nc, int ls, int K, int max_iter,
+                                   int gate, void* stream) {
+  return launch_full<float>(ptrs, eps_b, eps_f, alpha, B, n, nc, ls, K,
+                            max_iter, gate, stream);
 }
 
 // Resident blocks per SM of the full-layout kernel at n rows and of the
 // reduced kernels at k rows (kernel 0: admm_chunk_f64, 1: admm_chunk_f32,
-// 2: admm_chunk_full_f64; a block holds four instances, and one for the
-// reduced kernels above 64 rows, two for the full layout above 80), from
+// 2: admm_chunk_full_f64, 3: admm_chunk_full_f32; a block holds four
+// instances, and one for the reduced kernels above 64 rows, two for the
+// full layout where four operators do not fit in shared memory), from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor.
 // Returns the cudaError_t.
 extern "C" int admm_chunk_blocks_per_sm(int kernel, int rows, int* blocks) {
-  if (rows < 1 || rows > KMAX || kernel < 0 || kernel > 2)
+  if (rows < 1 || rows > KMAX || kernel < 0 || kernel > 3)
     return (int)cudaErrorInvalidValue;
-  if (kernel == 2) return full_occupancy(rows, blocks);
-  return kernel == 0 ? rows_occupancy<double>(rows, blocks)
-                     : rows_occupancy<float>(rows, blocks);
+  switch (kernel) {
+    case 0: return rows_occupancy<double>(rows, blocks);
+    case 1: return rows_occupancy<float>(rows, blocks);
+    case 2: return full_occupancy<double>(rows, blocks);
+    default: return full_occupancy<float>(rows, blocks);
+  }
 }

@@ -9,11 +9,20 @@ counterpart is easy to find; nothing here is Pallas):
 * `admm_chunk_f32` replaces `admm_chunk_pallas32`, the plain-f32
   approach-phase chunk;
 * `admm_chunk_full_f64` is `admm_chunk_pallas` in the general layout the
-  full-splitting engine and the f64 parity engine call it in: all n
-  variables, the cone segment at ``[ls, ls + nc)`` wherever it sits, the
-  box duals (n rows) and cone duals (nc rows) kept apart, unit weights.
+  full-splitting engine, the f64 parity engine and the batch-level engine
+  (`core.batched.solve_batched_fast`) call it in: all n variables, the
+  cone segment at ``[ls, ls + nc)`` wherever it sits, the box duals (n
+  rows) and cone duals (nc rows) kept apart, unit weights;
+  `admm_chunk_full_f32` is the same kernel in f32, the parity engine's on
+  f32 data.
 
-All three are hand-written CUDA C++ for sm_90a in `csrc/admm_chunk.cu`,
+Every kernel takes the over-relaxation ``alpha`` (the JAX package runs
+``alpha != 1`` on its XLA chunk bodies, its Pallas kernels take none):
+``x_hat = alpha x + (1 - alpha) s_prev`` feeds the projections and the
+dual update, the residuals stay on the true x; at ``alpha == 1`` nothing
+of it runs.
+
+All four are hand-written CUDA C++ for sm_90a in `csrc/admm_chunk.cu`,
 built with nvcc into a shared library with a plain C interface at first
 use (`build_kernels`) and called through ctypes on PyTorch's current
 stream. Beside each is its plain PyTorch version (``*_plain``): the same
@@ -118,24 +127,16 @@ def build_kernels() -> ctypes.CDLL:
     build_info["ptxas"] = ptxas_report(build_info["log"])
     lib = ctypes.CDLL(str(so))
     common = [ctypes.c_void_p]
-    lib.admm_chunk_f64.argtypes = common + [
-        ctypes.c_double, ctypes.c_double,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.admm_chunk_f64.restype = ctypes.c_int
-    lib.admm_chunk_f32.argtypes = common + [
-        ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.admm_chunk_f32.restype = ctypes.c_int
-    lib.admm_chunk_full_f64.argtypes = common + [
-        ctypes.c_double, ctypes.c_double,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.admm_chunk_full_f64.restype = ctypes.c_int
+    i = ctypes.c_int
+    for name, real, n_int in (
+            ("admm_chunk_f64", ctypes.c_double, 6),
+            ("admm_chunk_f32", ctypes.c_float, 5),
+            ("admm_chunk_full_f64", ctypes.c_double, 7),
+            ("admm_chunk_full_f32", ctypes.c_float, 7)):
+        fn = getattr(lib, name)
+        # ptrs, eps_b, eps_f, alpha, the integer arguments, stream
+        fn.argtypes = common + [real] * 3 + [i] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.admm_chunk_blocks_per_sm.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.admm_chunk_blocks_per_sm.restype = ctypes.c_int
@@ -146,18 +147,22 @@ def build_kernels() -> ctypes.CDLL:
 def ptxas_report(log: str) -> dict:
     """``{kernel instantiation: (registers, stack frame bytes, spill
     store bytes, spill load bytes)}`` from an ``nvcc -Xptxas -v`` log,
-    named as in the source (``admm_chunk_warp<double, 3>``,
-    ``admm_chunk_full_warp<2>``)."""
+    named as in the source (``admm_chunk_warp<double, 3, false>``,
+    ``admm_chunk_full_warp<float, 2>``)."""
     out, name = {}, None
+    word = {"i": lambda v: v, "b": lambda v: "true" if v == "1" else "false"}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(admm_chunk_(?:full_)?warp)I([df]?)((?:Li\d+E)+)",
-                          m.group(1))
+            k = re.search(
+                r"(admm_chunk_(?:full_)?warp)I([df]?)((?:L[ib]\d+E)+)",
+                m.group(1))
             name = m.group(1) if k is None else (
                 f"{k.group(1)}<"
                 + {"d": "double, ", "f": "float, ", "": ""}[k.group(2)]
-                + ", ".join(re.findall(r"Li(\d+)E", k.group(3))) + ">")
+                + ", ".join(word[t](v) for t, v in
+                            re.findall(r"L([ib])(\d+)E", k.group(3)))
+                + ">")
             out[name] = [0, 0, 0, 0]
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -173,8 +178,9 @@ def ptxas_report(log: str) -> dict:
 def blocks_per_sm(kernel: str, rows: int) -> int:
     """Resident blocks per SM of ``kernel`` (a name in `KERNELS`) at
     ``rows`` rows, from the CUDA occupancy calculator. A block holds four
-    instances; one (reduced kernels) above 64 rows, two (full layout) above
-    80."""
+    instances; one (reduced kernels) above 64 rows, two (full layout)
+    where four operators do not fit in shared memory (f64 above 80
+    rows)."""
     names = [fn.__name__ for fn in KERNELS]
     out = ctypes.c_int(0)
     err = build_kernels().admm_chunk_blocks_per_sm(
@@ -189,10 +195,19 @@ def blocks_per_sm(kernel: str, rows: int) -> int:
 # --------------------------------------------------------------------------
 
 
+def _relax(alpha, dt):
+    """``(alpha, 1 - alpha)`` as 0-d tensors of ``dt``, the second
+    computed in ``dt`` as the kernels compute it; None at alpha == 1."""
+    if alpha == 1.0:
+        return None
+    al = torch.tensor(alpha, dtype=dt)
+    return al, 1 - al
+
+
 def _chunk_plain(
     Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
     x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
-    kb, K, max_iter, weights, inc_gate,
+    kb, K, max_iter, weights, inc_gate, alpha,
 ):
     """Up to K masked ADMM iterations in the dtype of the state."""
     k = x.shape[0]
@@ -200,6 +215,7 @@ def _chunk_plain(
     dt = x.dtype
     eps_b = torch.tensor(eps_bound, dtype=dt)
     eps_f = torch.tensor(eps_fcone, dtype=dt)
+    relax = _relax(alpha, dt)
     wk = weights
     zeros_b = torch.zeros_like(rho)
     done = done.clone()
@@ -213,7 +229,8 @@ def _chunk_plain(
         for j in range(1, k):
             y = y + Fj[j] * v_new[j]
         xn = x_const + rho * y
-        t = xn + mu
+        xh = xn if relax is None else relax[0] * xn + relax[1] * s_prev
+        t = xh + mu
         parts = []
         if kb:
             parts.append(torch.clamp(t[:kb], lb, ub))
@@ -221,7 +238,7 @@ def _chunk_plain(
             parts.append(project_cone_ds(t[kb:], mu_f))
         s_new = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
         res = xn - s_new
-        mu_new = mu + res
+        mu_new = mu + (xh - s_new)
         wres = res.abs() * wk
         n_xrn = wres[:kb].amax(dim=0) if kb else zeros_b
         n_lrn = wres[kb:].amax(dim=0) if nc else zeros_b
@@ -254,28 +271,28 @@ def _chunk_plain(
 def admm_chunk_f64_plain(
     Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
     x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
-    *, kb, K, max_iter, weights, inc_gate=False,
+    *, kb, K, max_iter, weights, inc_gate=False, alpha=1.0,
 ):
     """Plain PyTorch version of `admm_chunk_f64` (same arguments and
     results)."""
     return _chunk_plain(
         Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
         x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
-        kb, K, max_iter, weights, inc_gate,
+        kb, K, max_iter, weights, inc_gate, alpha,
     )
 
 
 def admm_chunk_f32_plain(
     Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
     x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
-    *, kb, K, max_iter, weights,
+    *, kb, K, max_iter, weights, alpha=1.0,
 ):
     """Plain PyTorch version of `admm_chunk_f32` (same arguments and
     results)."""
     return _chunk_plain(
         Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
         x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
-        kb, K, max_iter, weights, False,
+        kb, K, max_iter, weights, False, alpha,
     )
 
 
@@ -289,12 +306,13 @@ GATE_OFF, GATE_SPLIT, GATE_ALL = 0, 1, 2
 def admm_chunk_full_f64_plain(
     Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
     x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
-    xrn, lrn, prim, dual, *, ls, K, max_iter, gate=GATE_OFF,
+    xrn, lrn, prim, dual, *, ls, K, max_iter, gate=GATE_OFF, alpha=1.0,
 ):
-    """Plain PyTorch version of `admm_chunk_full_f64` (same arguments and
-    results)."""
+    """Plain PyTorch version of `admm_chunk_full_f64` and, on f32
+    tensors, of `admm_chunk_full_f32` (same arguments and results)."""
     n, nc = x.shape[0], lam_bar.shape[0]
     dt = x.dtype
+    relax = _relax(alpha, dt)
     seg = slice(ls, ls + nc)
     other = torch.tensor([r for r in range(n) if not ls <= r < ls + nc],
                          dtype=torch.long, device=x.device)
@@ -316,14 +334,15 @@ def admm_chunk_full_f64_plain(
         for j in range(1, n):
             y = y + Fj[j] * v_new[j]
         xn = x_const + rho * y
-        xb_new = torch.clamp(xn + mu_x, lb, ub)
+        xh = xn if relax is None else relax[0] * xn + relax[1] * s_prev
+        xb_new = torch.clamp(xh + mu_x, lb, ub)
         r_x = xn - xb_new
         n_xrn = r_x.abs().amax(dim=0)
         if nc:
-            lam_new = project_cone_ds(xn[seg] + mu_lam, mu_f)
+            lam_new = project_cone_ds(xh[seg] + mu_lam, mu_f)
             r_l = xn[seg] - lam_new
             n_lrn = r_l.abs().amax(dim=0)
-            mul_new = mu_lam + r_l
+            mul_new = mu_lam + (xh[seg] - lam_new)
         else:
             lam_new, mul_new, n_lrn = lam_bar, mu_lam, zeros_b
         s_now = with_seg(xb_new, lam_new)
@@ -344,7 +363,7 @@ def admm_chunk_full_f64_plain(
         x = torch.where(a2, xn, x)
         x_bar = torch.where(a2, xb_new, x_bar)
         lam_bar = torch.where(a2, lam_new, lam_bar)
-        mu_x = torch.where(a2, mu_x + r_x, mu_x)
+        mu_x = torch.where(a2, mu_x + (xh - xb_new), mu_x)
         mu_lam = torch.where(a2, mul_new, mu_lam)
         v = torch.where(a2, v_new, v)
         xrn = torch.where(active, n_xrn, xrn)
@@ -376,7 +395,7 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(fn_name, dtype, args, kb, K, max_iter, inc_gate):
+def _launch(fn_name, dtype, args, kb, K, max_iter, inc_gate, alpha):
     (Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
      x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual, weights) = args
     k, B = x.shape
@@ -422,13 +441,13 @@ def _launch(fn_name, dtype, args, kb, K, max_iter, inc_gate):
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     if fn_name == "admm_chunk_f64":
         err = lib.admm_chunk_f64(
-            ptrs, float(eps_bound), float(eps_fcone), B, k, kb, K,
-            max_iter, int(bool(inc_gate)), stream,
+            ptrs, float(eps_bound), float(eps_fcone), float(alpha), B, k,
+            kb, K, max_iter, int(bool(inc_gate)), stream,
         )
     else:
         err = lib.admm_chunk_f32(
-            ptrs, float(eps_bound), float(eps_fcone), B, k, kb, K,
-            max_iter, stream,
+            ptrs, float(eps_bound), float(eps_fcone), float(alpha), B, k,
+            kb, K, max_iter, stream,
         )
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
@@ -439,7 +458,7 @@ def _launch(fn_name, dtype, args, kb, K, max_iter, inc_gate):
 def admm_chunk_f64(
     Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
     x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
-    *, kb, K, max_iter, weights, inc_gate=False,
+    *, kb, K, max_iter, weights, inc_gate=False, alpha=1.0,
 ):
     """Run up to K fused f64 ADMM iterations per instance (the endgame
     chunk, replacing `fcc_qp_tpu.ops.pallas_admm.admm_chunk_pallas`).
@@ -449,7 +468,8 @@ def admm_chunk_f64(
     (nc/3, B), rho (B,), all f64; done (B,) bool; n_iter / itv (B,)
     int32; xrn / lrn / prim / dual (B,) f64 residuals carried for idle
     instances. ``itv`` counts iterations per instance across chunks and
-    phases; n_iter records it at the converging iteration.
+    phases; n_iter records it at the converging iteration. ``alpha``: the
+    over-relaxation (1: none).
 
     Returns ``(x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual)``.
     CPU tensors take `admm_chunk_f64_plain`; CUDA tensors launch the
@@ -460,13 +480,13 @@ def admm_chunk_f64(
             Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
             x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
             kb=kb, K=K, max_iter=max_iter, weights=weights,
-            inc_gate=inc_gate,
+            inc_gate=inc_gate, alpha=alpha,
         )
     out = _launch(
         "admm_chunk_f64", torch.float64,
         (Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
          x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual, weights),
-        kb, K, max_iter, inc_gate,
+        kb, K, max_iter, inc_gate, alpha,
     )
     admm_chunk_f64.launches += 1
     return out
@@ -475,7 +495,7 @@ def admm_chunk_f64(
 def admm_chunk_f32(
     Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
     x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
-    *, kb, K, max_iter, weights,
+    *, kb, K, max_iter, weights, alpha=1.0,
 ):
     """Run up to K fused plain-f32 ADMM iterations per instance (the
     approach-phase chunk, replacing
@@ -488,22 +508,78 @@ def admm_chunk_f32(
         return admm_chunk_f32_plain(
             Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
             x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual,
-            kb=kb, K=K, max_iter=max_iter, weights=weights,
+            kb=kb, K=K, max_iter=max_iter, weights=weights, alpha=alpha,
         )
     out = _launch(
         "admm_chunk_f32", torch.float32,
         (Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
          x, s, mu, v, done, n_iter, itv, xrn, lrn, prim, dual, weights),
-        kb, K, max_iter, False,
+        kb, K, max_iter, False, alpha,
     )
     admm_chunk_f32.launches += 1
     return out
 
 
+def _launch_full(fn_name, dtype, args, ls, K, max_iter, gate, alpha):
+    (Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+     x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
+     xrn, lrn, prim, dual) = args
+    n, B = x.shape
+    nc = lam_bar.shape[0]
+    check_rows(n, "n")
+    if not (nc % 3 == 0 and 0 <= ls and ls + nc <= n
+            and gate in (GATE_OFF, GATE_SPLIT, GATE_ALL)):
+        raise ValueError(
+            f"unsupported layout n={n}, nc={nc}, ls={ls}, gate={gate}")
+    dev = x.device
+    i32 = torch.int32
+    done_i = done.to(i32).contiguous()
+    # the kernel indexes the cone arrays from their own base pointers;
+    # give an empty segment a valid one-row buffer
+    pad = lambda a: a if nc else torch.zeros((1, B), dtype=dtype, device=dev)
+    ncr = max(nc, 1)
+    specs = [
+        ("Fj", Fj, (n, n, B), dtype), ("x_const", x_const, (n, B), dtype),
+        ("lb", lb, (n, B), dtype), ("ub", ub, (n, B), dtype),
+        ("mu_f", pad(mu_f), (max(nc // 3, 1), B), dtype),
+        ("rho", rho, (B,), dtype),
+        ("x", x, (n, B), dtype), ("x_bar", x_bar, (n, B), dtype),
+        ("lam_bar", pad(lam_bar), (ncr, B), dtype),
+        ("mu_x", mu_x, (n, B), dtype),
+        ("mu_lam", pad(mu_lam), (ncr, B), dtype),
+        ("v", v, (n, B), dtype),
+        ("done", done_i, (B,), i32), ("n_iter", n_iter, (B,), i32),
+        ("itv", itv, (B,), i32), ("xrn", xrn, (B,), dtype),
+        ("lrn", lrn, (B,), dtype), ("prim", prim, (B,), dtype),
+        ("dual", dual, (B,), dtype),
+    ]
+    for name, t, shp, dt in specs:
+        _check(name, t, shp, dt, dev)
+    rows = (n, n, ncr, n, ncr, n)
+    outs = ([torch.empty((r, B), dtype=dtype, device=dev) for r in rows]
+            + [torch.empty((B,), dtype=i32, device=dev) for _ in range(3)]
+            + [torch.empty((B,), dtype=dtype, device=dev) for _ in range(4)])
+    ptrs = (ctypes.c_void_p * 32)(
+        *[t.data_ptr() for _, t, _, _ in specs],
+        *[t.data_ptr() for t in outs],
+    )
+    lib = build_kernels()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    err = getattr(lib, fn_name)(
+        ptrs, float(eps_bound), float(eps_fcone), float(alpha), B, n, nc, ls,
+        K, max_iter, int(gate), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
+    xo, xbo, lamo, muxo, mulo, vo, doneo, nio, itvo, *res = outs
+    return (xo, xbo, lamo[:nc], muxo, mulo[:nc], vo, doneo != 0, nio, itvo,
+            *res)
+
+
 def admm_chunk_full_f64(
     Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
     x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
-    xrn, lrn, prim, dual, *, ls, K, max_iter, gate=GATE_OFF,
+    xrn, lrn, prim, dual, *, ls, K, max_iter, gate=GATE_OFF, alpha=1.0,
 ):
     """Run up to K fused f64 ADMM iterations per instance in the full
     layout (`fcc_qp_tpu.ops.pallas_admm.admm_chunk_pallas` as the
@@ -515,7 +591,8 @@ def admm_chunk_full_f64(
     mu_lam (nc, B), the cone segment at rows ``[ls, ls + nc)``; done (B,)
     bool; n_iter / itv (B,) int32; xrn / lrn / prim / dual (B,) carried
     for idle instances. ``gate``: `GATE_OFF`, `GATE_SPLIT` or `GATE_ALL`.
-    n <= `MAX_ROWS`; nc = 0 is allowed.
+    ``alpha``: the over-relaxation (1: none). n <= `MAX_ROWS`; nc = 0 is
+    allowed.
 
     Returns ``(x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
     xrn, lrn, prim, dual)``. CPU tensors take
@@ -526,65 +603,49 @@ def admm_chunk_full_f64(
             x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
             xrn, lrn, prim, dual)
     if x.device.type == "cpu":
-        return admm_chunk_full_f64_plain(*args, ls=ls, K=K,
-                                         max_iter=max_iter, gate=gate)
-    n, B = x.shape
-    nc = lam_bar.shape[0]
-    check_rows(n, "n")
-    if not (nc % 3 == 0 and 0 <= ls and ls + nc <= n
-            and gate in (GATE_OFF, GATE_SPLIT, GATE_ALL)):
-        raise ValueError(
-            f"unsupported layout n={n}, nc={nc}, ls={ls}, gate={gate}")
-    dev = x.device
-    f64, i32 = torch.float64, torch.int32
-    done_i = done.to(i32).contiguous()
-    # the kernel indexes the cone arrays from their own base pointers;
-    # give an empty segment a valid one-row buffer
-    pad = lambda a: a if nc else torch.zeros((1, B), dtype=f64, device=dev)
-    ncr = max(nc, 1)
-    specs = [
-        ("Fj", Fj, (n, n, B), f64), ("x_const", x_const, (n, B), f64),
-        ("lb", lb, (n, B), f64), ("ub", ub, (n, B), f64),
-        ("mu_f", pad(mu_f), (max(nc // 3, 1), B), f64),
-        ("rho", rho, (B,), f64),
-        ("x", x, (n, B), f64), ("x_bar", x_bar, (n, B), f64),
-        ("lam_bar", pad(lam_bar), (ncr, B), f64),
-        ("mu_x", mu_x, (n, B), f64), ("mu_lam", pad(mu_lam), (ncr, B), f64),
-        ("v", v, (n, B), f64),
-        ("done", done_i, (B,), i32), ("n_iter", n_iter, (B,), i32),
-        ("itv", itv, (B,), i32), ("xrn", xrn, (B,), f64),
-        ("lrn", lrn, (B,), f64), ("prim", prim, (B,), f64),
-        ("dual", dual, (B,), f64),
-    ]
-    for name, t, shp, dt in specs:
-        _check(name, t, shp, dt, dev)
-    rows = (n, n, ncr, n, ncr, n)
-    outs = ([torch.empty((r, B), dtype=f64, device=dev) for r in rows]
-            + [torch.empty((B,), dtype=i32, device=dev) for _ in range(3)]
-            + [torch.empty((B,), dtype=f64, device=dev) for _ in range(4)])
-    ptrs = (ctypes.c_void_p * 32)(
-        *[t.data_ptr() for _, t, _, _ in specs],
-        *[t.data_ptr() for t in outs],
-    )
-    lib = build_kernels()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    err = lib.admm_chunk_full_f64(
-        ptrs, float(eps_bound), float(eps_fcone), B, n, nc, ls, K,
-        max_iter, int(gate), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"admm_chunk_full_f64: CUDA error {err} at launch")
+        return admm_chunk_full_f64_plain(*args, ls=ls, K=K, max_iter=max_iter,
+                                         gate=gate, alpha=alpha)
+    out = _launch_full("admm_chunk_full_f64", torch.float64, args, ls, K,
+                       max_iter, gate, alpha)
     admm_chunk_full_f64.launches += 1
-    xo, xbo, lamo, muxo, mulo, vo, doneo, nio, itvo, *res = outs
-    return (xo, xbo, lamo[:nc], muxo, mulo[:nc], vo, doneo != 0, nio, itvo,
-            *res)
+    return out
+
+
+# the plain version of `admm_chunk_full_f32`: the same iteration, in the
+# dtype of its (f32) inputs
+admm_chunk_full_f32_plain = admm_chunk_full_f64_plain
+
+
+def admm_chunk_full_f32(
+    Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+    x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
+    xrn, lrn, prim, dual, *, ls, K, max_iter, gate=GATE_OFF, alpha=1.0,
+):
+    """`admm_chunk_full_f64` in f32: every floating-point argument and
+    result f32 (the f64 parity engine on f32 data, as the JAX package's
+    solver computes in the data's dtype). CPU tensors take
+    `admm_chunk_full_f32_plain`; CUDA tensors launch the kernel (counted
+    in ``admm_chunk_full_f32.launches``) or raise."""
+    args = (Fj, x_const, lb, ub, mu_f, rho, eps_bound, eps_fcone,
+            x, x_bar, lam_bar, mu_x, mu_lam, v, done, n_iter, itv,
+            xrn, lrn, prim, dual)
+    if x.device.type == "cpu":
+        return admm_chunk_full_f32_plain(*args, ls=ls, K=K, max_iter=max_iter,
+                                         gate=gate, alpha=alpha)
+    out = _launch_full("admm_chunk_full_f32", torch.float32, args, ls, K,
+                       max_iter, gate, alpha)
+    admm_chunk_full_f32.launches += 1
+    return out
 
 
 admm_chunk_f64.launches = 0
 admm_chunk_f32.launches = 0
 admm_chunk_full_f64.launches = 0
+admm_chunk_full_f32.launches = 0
 
-KERNELS = (admm_chunk_f64, admm_chunk_f32, admm_chunk_full_f64)
+# in the order of the library's kernel numbers (admm_chunk_blocks_per_sm)
+KERNELS = (admm_chunk_f64, admm_chunk_f32, admm_chunk_full_f64,
+           admm_chunk_full_f32)
 
 
 def reset_launch_counts() -> None:

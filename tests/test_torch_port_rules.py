@@ -1,9 +1,9 @@
 """Rules of the port (`fcc_qp_tpu_torch`): it imports neither JAX nor the
 JAX package, pins full-f32 matmuls, runs on the card unless asked for
-the CPU, rejects the options it does not cover (and solves the ones an
-earlier slice rejected), sends CPU tensors to the kernels' plain
-versions without launching anything, and `chip_smoke.py` refuses to
-report without a card."""
+the CPU, solves every option of the option set (those an earlier slice
+rejected included), sends CPU tensors to the kernels' plain versions
+without launching anything, and `chip_smoke.py` refuses to report
+without a card."""
 
 import os
 import shutil
@@ -40,6 +40,9 @@ opts = T.FCCQPOptions(max_iter=3000, rho=0.05, eps_fcone=1e-6,
                       splitting="constrained", polish=True, polish_rounds=4)
 sol, _ = T.solve_batched_ds(qp, CASSIE.shape, opts, device="cpu")
 assert sol.z.shape == (4, 60)
+import fcc_qp_tpu_torch.core.batched, fcc_qp_tpu_torch.core.serving
+import fcc_qp_tpu_torch.parallel, fcc_qp_tpu_torch.parallel.scaling_bench
+import fcc_qp_tpu_torch.utils.io
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "fcc_qp_tpu.")))
 print("LEAKED", bad)
@@ -54,6 +57,35 @@ def test_package_imports_no_jax_and_solves_on_cpu():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "fcc_qp_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    """Every module of the port, and chip_smoke.py: no import of ``jax``
+    or of ``fcc_qp_tpu`` (the port's own name starts alike)."""
+    import ast
+
+    for path in _port_sources():
+        tree = ast.parse(open(path).read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "fcc_qp_tpu"), (
+                    f"{os.path.relpath(path, ROOT)} imports {name}")
 
 
 def test_tf32_pinned_off():
@@ -97,17 +129,46 @@ def test_new_entry_points_default_to_cuda():
         T.solve_batched_ds(T.to_ds_batch(st, device="cpu"), CASSIE.shape)
 
 
+def test_slice_six_entry_points_default_to_cuda(tmp_path):
+    """The batch-level engine, the server, the sharded solves, the mesh
+    and the IO loaders: CUDA unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    from fcc_qp_tpu_torch import parallel
+    from fcc_qp_tpu_torch.utils import io
+
+    st = stack_qp_dicts(generate_osc_batch(CASSIE, 2, seed=0))
+    qp = T.QPBatch(**{k: torch.from_numpy(v) for k, v in st.items()})
+    qds = T.to_ds_batch(st, device="cpu")
+    w = T.WarmStart.zeros(CASSIE.shape, (2,))
+    io.save_warm_start(str(tmp_path / "w.npz"), w)
+    for call in (lambda: T.solve_batched_fast(qp, CASSIE.shape),
+                 lambda: T.FCCQPServer(CASSIE.shape),
+                 lambda: parallel.make_mesh(),
+                 lambda: parallel.solve_batched_sharded(qp, CASSIE.shape),
+                 lambda: parallel.solve_batched_ds_sharded(qds,
+                                                           CASSIE.shape),
+                 lambda: io.to_qpbatch(st),
+                 lambda: io.load_warm_start(str(tmp_path / "w.npz"))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 BASE = dict(presolve="operator", scaling=True, splitting="constrained")
 
 
 @pytest.mark.parametrize("kw", [dict(adaptive_rho=True), dict(alpha=1.5)])
 def test_uncovered_options_raise(kw):
+    """The options the port once rejected with `NotImplementedError`
+    (adaptive rho on the reduced path, over-relaxation) no longer raise:
+    they solve (their parity with the JAX package:
+    tests/test_torch_options.py)."""
     qp = T.to_ds_batch(
         stack_qp_dicts(generate_osc_batch(CASSIE, 2, seed=0)), device="cpu"
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.solve_batched_ds(qp, CASSIE.shape, T.FCCQPOptions(**{**BASE, **kw}),
-                           device="cpu")
+    sol, _ = T.solve_batched_ds(qp, CASSIE.shape,
+                                T.FCCQPOptions(**{**BASE, **kw}), device="cpu")
+    _solved(sol, 2)
 
 
 def _solved(sol, B):
@@ -147,13 +208,15 @@ def test_replay_defaults_to_cuda():
 
 @pytest.mark.parametrize("kw", [dict(adaptive_rho=True), dict(alpha=1.5)])
 def test_replay_uncovered_options_raise(kw):
+    """As `test_uncovered_options_raise`, through the replay: the options
+    no longer raise, and every step solves."""
     qp = T.to_ds_batch(
         stack_qp_dicts(generate_osc_batch(CASSIE, 4, seed=0)), device="cpu"
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.replay_ds_streams(qp, CASSIE.shape,
-                            T.FCCQPOptions(**{**BASE, **kw}), n_streams=2,
-                            device="cpu")
+    sols, _ = T.replay_ds_streams(qp, CASSIE.shape,
+                                  T.FCCQPOptions(**{**BASE, **kw}),
+                                  n_streams=2, device="cpu")
+    _solved(sols, 4)
 
 
 @pytest.mark.parametrize("kw", [
@@ -188,13 +251,13 @@ def _chunk_inputs(dtype, B=8, k=7, kb=4, seed=0):
     return args, dict(kb=kb, K=5, max_iter=100, weights=t(np.ones((k, B))))
 
 
-@pytest.mark.parametrize("prec", ["f64", "f32", "full_f64"])
+@pytest.mark.parametrize("prec", ["f64", "f32", "full_f64", "full_f32"])
 def test_cpu_tensors_take_plain_version(prec):
-    dtype = torch.float32 if prec == "f32" else torch.float64
+    dtype = torch.float32 if prec.endswith("f32") else torch.float64
     wrapper = getattr(tk, f"admm_chunk_{prec}")
     plain = getattr(tk, f"admm_chunk_{prec}_plain")
     args, kw = _chunk_inputs(dtype)
-    if prec == "full_f64":
+    if prec.startswith("full"):
         args, kw = _full_chunk_inputs(args, kw)
     tk.reset_launch_counts()
     got = wrapper(*args, **kw)
@@ -202,7 +265,7 @@ def test_cpu_tensors_take_plain_version(prec):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert all(fn.launches == 0 for fn in tk.KERNELS)
-    itv = got[8] if prec == "full_f64" else got[6]
+    itv = got[8] if prec.startswith("full") else got[6]
     assert int(itv.min()) == 5  # every instance ran the whole chunk
 
 
