@@ -60,15 +60,31 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    (the rest of that stage is the adaptive-rho rebuilds and the host).
 7. The drop-in `FCCQP(60, 38, 12, 38)` over a 200-step walking log, the
    reference loop (``set_warm_start(i > 0)``), on the f64 engine at the
-   README quick-start options and on the ds engine with rho = 0.05:
-   per-Solve wall p50 / p95, solve and factorization time p50, n_iter
-   and statuses. Checks: no kFactorizationFailed, the kSuccess count
-   within two of the JAX package's on the CPU, and on every kSuccess
-   step the equality residual, bounds and cones; then the verify notes'
-   probes on both engines.
-8. The full-layout kernel against its plain version on the full solve's
-   first and last chunks and one B = 1 chunk of the f64 drop-in replay
-   (timed, with bounds), on a quadruped chunk whose cone triple
+   README quick-start options and on the ds engine with rho = 0.05; on
+   the card every `Solve` replays the captured graphs
+   (`core.graphs.CapturedSolve`): per-Solve wall p50 / p95, solve and
+   factorization time p50, n_iter and statuses. Checks: the graphs
+   captured, no kFactorizationFailed, the kSuccess count within two of
+   the JAX package's on the CPU, and on every kSuccess step the equality
+   residual, bounds and cones; the first 64 steps equal to the eager
+   static solve on the card (`CapturedSolve` with graphs off) bit for
+   bit (z and every diagnostic); beside them, in the same call, the
+   per-Solve wall of the eager solve, the drop-in's solve uncaptured
+   (host reads in its loops), over the same 64 steps, whose results the
+   replays equal (f64 bit for bit: the captured loop is one launch of
+   max_iter iterations, the eager one chunks of 64; ds statuses and
+   |dz| <= 1e-9). Printed: how many captures each drop-in made, and
+   the capturing Solves' walls apart from the replays'. Then the verify
+   notes' probes on both engines.
+8. Both reduced kernels against their plain versions at B = 1 (one warp
+   in a block of four slots, three of them out of range), on the ds
+   drop-in's eager static solve: its first launch (``*_b1`` keys) and
+   its last launch in which the instance iterates (``*_b1_last``),
+   state and max-norms bit for bit, timed with bounds. The full-layout
+   kernel against its plain version on the full solve's
+   first and last chunks and one B = 1 launch of the f64 drop-in's eager
+   static solve (``max_iter`` iterations in one launch; timed, with
+   bounds), on a quadruped chunk whose cone triple
    straddles a warp's two row slots, and on the first (timed, with
    bounds: ``*_generic`` keys, one case per row-slot count) and last
    chunks of random problems whose row counts are no model's
@@ -105,11 +121,26 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    less 1%, rebuilds, time per solve.
 14. The parity engine on f32 data (``bench.py --engine f32``) at B = 8192:
    the JAX f32 engine's share less 1%, and the f32 full-layout kernel
-   (`admm_chunk_full_f32`) against its plain version bit for bit on its
-   first and last chunks.
+   (`admm_chunk_full_f32`) against its plain version bit for bit on the
+   solve's one launch of all its iterations.
 15. `FCCQPServer` over a 64-step walking log at depth 1, 2, 4 and 8 on
-   both engines: equal to the serial `FCCQP` loop (statuses, |dz| <= 1e-9
-   ds / 1e-8 f64); ms per result p50 / p95 and results/s per depth.
+   both engines. First, per engine, a capture census
+   (`capture_census`): the solve of the log's first step captured
+   afresh with the kernel counters read around each stage, which gives
+   each hand kernel's launches in one cold and one warm replay exactly,
+   and each graph's nodes by type from `libcuda`. Then: the graphs
+   captured; equal to the serial `FCCQP` loop
+   (statuses, |dz| <= 1e-9 ds / 1e-8 f64), and both equal to the eager
+   static solve bit for bit; the serial loop against the eager
+   (uncaptured) solve as in phase 7; ms per result p50 / p95 and results/s per
+   depth, beside the eager solves' results/s. Then at every depth a
+   submit loop after the capturing first submit under `torch.profiler`:
+   no host read (``aten::_local_scalar_dense``) and no synchronization
+   outside a retire (``FCCQPServer.retire`` ranges), each replay's
+   kernels naming the hand kernels of its engine, and per solve the
+   graph launches and the kernel launches the trace shows (a lower
+   bound: a trace can lose kernel records); a replay's device time from
+   CUDA events over 20 back-to-back replays.
 16. The sharded solves (`parallel`) over [cuda:0] and over two shards on
    the one card at B = 8192 and 8191, both engines at `SHARD_OPTS`: equal
    to the unsharded solve (n_iter, statuses, |dz| <= 1e-8 ds / 1e-10
@@ -121,8 +152,11 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    under ``*_warm``, the drop-in chunk's under ``*_b1``, alpha = 1.6's
    under ``*_alpha``; ``ms_idle`` is a launch on the straggler inputs
    with every instance done; ``launches`` sums every path's count, and
-   ``launches_<path>`` splits it), the `nvidia-smi` line, and the final
-   JSON status line.
+   ``launches_<path>`` splits it: on the captured paths, drop-in and
+   serving, a wrapper counts at the warm-up and the capture, and
+   ``launches_per_replay`` (``_cold``) gives its launches in one replay
+   of each engine's warm (cold) graphs, from the capture census), the
+   `nvidia-smi` line, and the final JSON status line.
 
 Also printed: the bench solve's host seconds per chunk (the approach and
 endgame stage seconds over their launches), beside the kernels' own
@@ -201,9 +235,10 @@ def summarize(tag, sol, launches, wall, stages):
 
 class Recorder:
     """Wraps a kernel wrapper in the engine's namespace and keeps a copy
-    of the inputs of its first and of its last call, and of its last
-    call from a warm replay step (one where some instance is done
-    without having iterated: accepted by the warm polish attempt 0).
+    of the inputs of its first and of its last call, of its last call in
+    which some instance iterates (``last_active``), and of its last call
+    from a warm replay step (one where some instance is done without
+    having iterated: accepted by the warm polish attempt 0).
     ``done_at`` / ``itv_at``: where the wrapper takes those arguments."""
 
     def __init__(self, fn, done_at=12, itv_at=14):
@@ -211,6 +246,7 @@ class Recorder:
         self.done_at, self.itv_at = done_at, itv_at
         self.first = None
         self.last = None
+        self.last_active = None
         self.last_warm = None
 
     def __call__(self, *args, **kw):
@@ -226,6 +262,8 @@ class Recorder:
         done, itv = args[self.done_at], args[self.itv_at]
         if bool((done & (itv == 0)).any()):
             self.last_warm = self.last
+        if not bool(done.all()):
+            self.last_active = self.last
         return self.fn(*args, **kw)
 
 
@@ -677,12 +715,13 @@ def full_bound(args, kw, out):
                 active=active, iters=iters, n=n, B=Bn)
 
 
-def compare_full(case, kernel, plain, args, kw, time_it=True):
+def compare_full(case, kernel, plain, args, kw, time_it=True, plain_reps=3):
     """The full-layout kernel (`admm_chunk_full_f64`, or
     `admm_chunk_full_f32` on f32 inputs) against its plain version on the
     same inputs: the state, the counters and the max-norms bit for bit,
     the 2-norms (sums whose order PyTorch's reduction picks) to 1e-12
-    relative (f64) or 1e-6 (f32)."""
+    relative (f64) or 1e-6 (f32). ``plain_reps``: timed calls of the
+    plain version after its warm-up call."""
     import torch
 
     f32 = args[8].dtype == torch.float32
@@ -706,7 +745,7 @@ def compare_full(case, kernel, plain, args, kw, time_it=True):
     rec = dict(max_abs_err=max_err, **bound)
     if time_it:
         ms, issue_ms = time_cuda(lambda: kernel(*args, **kw), reps=20)
-        plain_ms, _ = time_cuda(lambda: plain(*args, **kw), reps=3)
+        plain_ms, _ = time_cuda(lambda: plain(*args, **kw), reps=plain_reps)
         rec.update(ms=ms, plain_ms=plain_ms, issue_ms=issue_ms)
     longest = int((out_k[8] - args[16]).max())
     log(f"[kernel] {kname} [{case}]: n={bound['n']} "
@@ -876,59 +915,240 @@ def check_dropin_steps(tag, seq, res, st, n):
               f"{r.details.friction_cone_viol:.3e}")
 
 
-def dropin_phase(solver_mod):
-    """Phase 7: the drop-in `FCCQP` over a 200-step walking log, the
-    reference loop, on both engines; then the verify notes' probes.
-    Returns {engine: launches} and a recorder of the f64 loop's last
-    chunk."""
+KEYS = ("Q", "b", "A_eq", "b_eq", "friction_coeffs", "lb", "ub")
+# the steps of a drop-in or serving log held bit for bit against the
+# eager static solve (a ds eager static solve takes about 0.27 s at B = 1)
+GRAPH_EQ_STEPS = 64
+# submits after the capturing first one, profiled at every server depth
+PROFILED_SUBMITS = 12
+# the hand kernels each engine's graphs must launch (names in the trace)
+GRAPH_KERNELS = {"ds": ("admm_chunk_warp<float", "admm_chunk_warp<double"),
+                 "f64": ("admm_chunk_full_warp<double",)}
+
+
+def eager_static_chain(engine, opts, seq):
+    """The eager static solve on the card (`core.graphs.CapturedSolve`
+    with graphs off: the code the graphs capture, run op by op) over
+    ``seq``, warm-chained and classified per step as `FCCQP` does; the
+    packed results, one row a step (z, then `core.graphs.STATS`)."""
     import numpy as np
     import torch
 
+    from fcc_qp_tpu_torch.core.graphs import (CapturedSolve, SolveBuffers,
+                                              classify, engine_options,
+                                              layout, pack_host)
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+
+    shape = CASSIE.shape
+    opts = engine_options(opts, engine)
+    host = torch.empty((layout(shape)[-1],), dtype=torch.float64)
+    bufs = SolveBuffers(shape, engine, "cuda", opts.rho)
+    solves, out = {}, []
+    for i, qp in enumerate(seq):
+        pack_host(shape, [qp[k] for k in KEYS], host)
+        con_idx = classify(shape, engine, host)
+        if con_idx not in solves:
+            solves[con_idx] = CapturedSolve(shape, opts, engine, bufs,
+                                            con_idx, graphs=False)
+        bufs.inp.copy_(host)
+        solves[con_idx].run(i > 0)
+        out.append(bufs.out.cpu().numpy().copy())
+    return np.stack(out)
+
+
+def packed_results(results, n):
+    """Host results (`FCCQPSolution`) as packed rows, like the eager
+    static chain's."""
+    import numpy as np
+
+    from fcc_qp_tpu_torch.core.graphs import STATS
+
+    return np.stack([np.concatenate([r.z, [float(getattr(r.details, k))
+                                           for k in STATS]])
+                     for r in results])
+
+
+def check_bit_equal(tag, got, want):
+    """Replays against the eager static solve: every word equal."""
+    import numpy as np
+
+    bad = np.where((got != want).any(axis=1))[0]
+    check(len(bad) == 0, f"{tag}: the graph replays differ from the eager "
+          f"static solve at steps {bad.tolist()[:8]} (max |diff| "
+          f"{float(np.abs(got - want).max()):.3e})")
+
+
+def check_captured(tag, solves):
+    check(len(solves) > 0 and all(s.graphs and s.captured for s in solves),
+          f"{tag}: the solve was not captured as CUDA graphs")
+
+
+def eager_dropin_walls(engine, opts, seq):
+    """Per-step wall of `Solve` + `GetSolution` with the drop-in's solve
+    uncaptured: the eager engine (a host read per chunk, per polish pass
+    and per skip; the f64 engine's loop in chunks of 64 iterations), the
+    operator span synchronized apart, the details read field by field.
+    Returns the walls (s) and the packed results (as
+    `eager_static_chain`'s)."""
+    import numpy as np
+    import torch
+
+    from fcc_qp_tpu_torch.core.ds_engine import QPBatchDS, solve_batched_ds
+    from fcc_qp_tpu_torch.core.graphs import engine_options, pack_solution
+    from fcc_qp_tpu_torch.core.solver import _solve_core
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+    from fcc_qp_tpu_torch.ops.kkt import admm_operator
+    from fcc_qp_tpu_torch.types import QPBatch
+
+    shape = CASSIE.shape
+    opts = engine_options(opts, engine)
+    warm, walls, rows = None, [], []
+    for i, step in enumerate(seq):
+        t0 = time.perf_counter()
+        qp = QPBatch(*(torch.as_tensor(np.asarray(step[k], np.float64))
+                       .to("cuda") for k in KEYS))
+        if engine == "ds":
+            sol, warm = solve_batched_ds(
+                QPBatchDS(*(v[..., None].contiguous()
+                            for v in qp.__dict__.values())),
+                shape, opts, warm=warm, warm_start=i > 0)
+        else:
+            qp1 = QPBatch(*(a[None] for a in qp.__dict__.values()))
+            torch.cuda.synchronize()
+            op = admm_operator(qp1.Q, qp1.b, qp1.A_eq, qp1.b_eq, opts.rho)
+            torch.cuda.synchronize()
+            sol, warm = _solve_core(qp1, shape, opts, warm, i > 0, op)
+            torch.cuda.synchronize()
+        _ = {k: v.reshape(-1)[0].item()
+             for k, v in sol.details.__dict__.items()}
+        _ = sol.z.cpu().numpy()
+        walls.append(time.perf_counter() - t0)
+        rows.append(pack_solution(sol).cpu().numpy())
+    return walls, np.stack(rows)
+
+
+def check_against_eager(tag, engine, got, eager, dz_bar):
+    """The graph replays against the eager (uncaptured) solve: bit for
+    bit on the f64 engine (its one launch of max_iter iterations must
+    equal the chunked loop); on the ds engine statuses equal and |dz|
+    within the server bar, and whether it is bit for bit. Returns
+    (bit for bit, max |dz|)."""
+    import numpy as np
+
+    n = got.shape[1] - 11
+    if engine == "f64":
+        check_bit_equal(f"{tag} (against the chunked eager solve)", got,
+                        eager)
+    dz = float(np.abs(got[:, :n] - eager[:, :n]).max())
+    check(np.array_equal(got[:, n + 1], eager[:, n + 1]) and dz <= dz_bar,
+          f"{tag}: statuses or |dz| {dz:.3e} against the eager solve")
+    return bool(np.array_equal(got, eager)), dz
+
+
+def dropin_phase(solver_mod):
+    """Phase 7: the drop-in `FCCQP` over a 200-step walking log, the
+    reference loop, on both engines, replaying its captured graphs (the
+    capturing `Solve`s counted and timed apart); held bit for bit against
+    the eager static solve on the first `GRAPH_EQ_STEPS`, and timed
+    beside the eager solve of the drop-in before its capture; then the
+    verify notes' probes. Returns {engine: launches}, the recorders of
+    the eager static chains' launches (the f64 chain's full-layout
+    kernel; the ds chain's two reduced kernels, {name: recorder}), and
+    the numbers."""
+    import numpy as np
+
+    import fcc_qp_tpu_torch.core.ds_engine as ds_mod
     from fcc_qp_tpu_torch import FCCQP, FCCQPOptions
     from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_sequence
     from fcc_qp_tpu_torch.ops import pallas_admm
 
     seq = generate_osc_sequence(CASSIE, DROPIN_STEPS, seed=0)
-    keys = ("Q", "b", "A_eq", "b_eq", "friction_coeffs", "lb", "ub")
-    launches, rec = {}, None
+    keys = KEYS
+    launches, rec, rec_ds, table = {}, None, None, {}
     for engine, rho in (("f64", DROPIN_OPTS["rho"]), ("ds", DROPIN_DS_RHO)):
+        opts = FCCQPOptions(**dict(DROPIN_OPTS, rho=rho))
         solver = FCCQP(60, 38, 12, 38, engine=engine)
-        solver.set_options(FCCQPOptions(**dict(DROPIN_OPTS, rho=rho)))
-
-        def loop():
-            out, walls = [], []
-            for i, qp in enumerate(seq):
-                solver.set_warm_start(i > 0)
-                t0 = time.perf_counter()
-                solver.Solve(*(qp[k] for k in keys))
-                res = solver.GetSolution()
-                walls.append(time.perf_counter() - t0)
-                out.append(res)
-            return out, walls
+        solver.set_options(opts)
 
         pallas_admm.reset_launch_counts()
-        if engine == "f64":
-            (res, walls), rec = recorded_full(solver_mod, loop)
-        else:
-            res, walls = loop()
+        res, walls, capturing = [], [], []
+        for i, qp in enumerate(seq):
+            solver.set_warm_start(i > 0)
+            known = {id(c) for c in solver._captures.values() if c.captured}
+            t0 = time.perf_counter()
+            solver.Solve(*(qp[k] for k in keys))
+            res.append(solver.GetSolution())
+            walls.append(time.perf_counter() - t0)
+            if any(c.captured and id(c) not in known
+                   for c in solver._captures.values()):
+                capturing.append(i)
         launches[engine] = {fn.__name__: fn.launches
                             for fn in pallas_admm.KERNELS}
+        check_captured(f"drop-in {engine}", solver._captures.values())
+        # the eager static solve on the same steps, its launches recorded
+        # (the f64 chain's last and the ds chain's first and last reduced
+        # launches are phase 8's B = 1 cases)
+        t0 = time.perf_counter()
+        if engine == "f64":
+            ref, rec = recorded_full(solver_mod, lambda: eager_static_chain(
+                engine, opts, seq[:GRAPH_EQ_STEPS]))
+        else:
+            ref, rec_ds = recorded_solve(ds_mod, lambda: eager_static_chain(
+                engine, opts, seq[:GRAPH_EQ_STEPS]))
+        static_s = (time.perf_counter() - t0) / GRAPH_EQ_STEPS
+        check_bit_equal(f"drop-in {engine}",
+                        packed_results(res[:GRAPH_EQ_STEPS], 60), ref)
+        eager, eager_rows = eager_dropin_walls(engine, opts,
+                                               seq[:GRAPH_EQ_STEPS])
+        eager = np.array(eager) * 1e3
+        same, dz = check_against_eager(
+            f"drop-in {engine}", engine,
+            packed_results(res[:GRAPH_EQ_STEPS], 60), eager_rows,
+            1e-9 if engine == "ds" else 1e-8)
         det = [r.details for r in res]
         st = np.array([x.solve_status for x in det])
         n_iter = np.array([x.n_iter for x in det])
         ms = np.array(walls) * 1e3
-        log(f"[dropin:{engine}] {DROPIN_STEPS} steps: Solve+GetSolution wall "
-            f"p50 {np.median(ms):.3f} ms, p95 {np.percentile(ms, 95):.3f} "
-            f"ms; solve_time p50 "
-            f"{np.median([x.solve_time for x in det]) * 1e3:.3f} ms, "
+        replays = np.delete(ms, capturing)
+        table[engine] = dict(
+            graph_p50_ms=float(np.median(ms)),
+            graph_p95_ms=float(np.percentile(ms, 95)),
+            graph_first_ms=float(ms[0]),
+            captures=len(solver._captures), capturing_steps=capturing,
+            capturing_ms=[float(ms[i]) for i in capturing],
+            replay_p50_ms=float(np.median(replays)),
+            replay_p95_ms=float(np.percentile(replays, 95)),
+            graph_p50_ms_first64=float(np.median(ms[:GRAPH_EQ_STEPS])),
+            solve_time_p50_ms=float(np.median([x.solve_time
+                                               for x in det]) * 1e3),
+            factorization_time_p50_ms=float(np.median(
+                [x.factorization_time for x in det]) * 1e3),
+            eager_p50_ms=float(np.median(eager)),
+            eager_p95_ms=float(np.percentile(eager, 95)),
+            eager_static_ms=static_s * 1e3,
+            bit_equal_to_eager=same, max_dz_to_eager=dz)
+        log(f"[dropin:{engine}] {DROPIN_STEPS} steps, graph replays: "
+            f"Solve+GetSolution wall p50 {np.median(ms):.3f} ms, p95 "
+            f"{np.percentile(ms, 95):.3f} ms; {len(solver._captures)} "
+            f"captures, made by the Solves of steps {capturing} "
+            f"({', '.join(f'{ms[i]:.3f}' for i in capturing)} ms); without "
+            f"them p50 {table[engine]['replay_p50_ms']:.3f} ms, p95 "
+            f"{table[engine]['replay_p95_ms']:.3f} ms; solve_time p50 "
+            f"{table[engine]['solve_time_p50_ms']:.3f} ms, "
             f"factorization_time p50 "
-            f"{np.median([x.factorization_time for x in det]) * 1e3:.3f} ms")
+            f"{table[engine]['factorization_time_p50_ms']:.3f} ms; the first "
+            f"{GRAPH_EQ_STEPS} steps bit for bit the eager static solve "
+            f"({static_s * 1e3:.3f} ms a step); the eager (uncaptured) solve, "
+            f"same call, same {GRAPH_EQ_STEPS} steps: p50 "
+            f"{np.median(eager):.3f} ms, p95 {np.percentile(eager, 95):.3f} "
+            f"ms (graph p50 on those steps "
+            f"{table[engine]['graph_p50_ms_first64']:.3f} ms)")
         log(f"[dropin:{engine}] statuses kSuccess {(st == 0).sum()}, "
             f"kMaxIterations {(st == 1).sum()}, kFactorizationFailed "
             f"{(st == 2).sum()}; n_iter p50 {np.median(n_iter):.0f}, max "
             f"{n_iter.max()}, step 0 {n_iter[0]}; polish accepted "
-            f"{sum(x.polish_accepted for x in det)}; launches "
-            + json.dumps(launches[engine]))
+            f"{sum(x.polish_accepted for x in det)}; launches (warm-up and "
+            f"capture) " + json.dumps(launches[engine]))
         want = DROPIN_JAX_STATUSES[engine]
         log(f"[dropin:{engine}] the JAX package on the CPU: kSuccess "
             f"{want[0]}, kMaxIterations {want[1]}")
@@ -985,7 +1205,7 @@ def dropin_phase(solver_mod):
     log("[dropin] probes passed on both engines: FCCQP(10, 2, 4, 0), a wrong "
         "Q shape and lb > ub raise, GetSolution() before Solve() raises, an "
         "equality-only problem gives n_iter 0 and an exact A_eq residual")
-    return launches, rec
+    return launches, rec, rec_ds, table
 
 
 def humanoid_phase(engine, two_phase):
@@ -1403,7 +1623,8 @@ def f32_phase(stacked, solver_mod):
     """Phase 14: the parity engine on f32 data (bench.py --engine f32) at
     B = 8192, counted from zero, held to the JAX f32 engine's share less
     1%; then the f32 full-layout kernel against its plain version bit for
-    bit on its first and last chunks."""
+    bit on the solve's one launch (every instance from its start to its
+    stop)."""
     import numpy as np
 
     import torch
@@ -1442,78 +1663,303 @@ def f32_phase(stacked, solver_mod):
     _, rec = recorded_full(solver_mod, lambda: solve_batched(
         q32, CASSIE.shape, opts), name="admm_chunk_full_f32")
     k, p = pallas_admm.admm_chunk_full_f32, pallas_admm.admm_chunk_full_f32_plain
-    first = compare_full("f32_first", k, p, *rec.first)
-    tail = compare_full("f32_tail", k, p, *rec.last)
-    check(first["active"] == B, "the f32 engine's first chunk is not all "
-          "active")
-    return launches, first, tail, dict(share=share, wall_s=wall)
+    check(rec.first is rec.last, "the f32 engine launched its kernel more "
+          "than once in a solve")
+    # the plain version of this launch takes seconds: timed once
+    first = compare_full("f32_one_launch", k, p, *rec.first, plain_reps=1)
+    check(first["active"] == B, "the f32 engine's launch is not all active")
+    return launches, first, dict(share=share, wall_s=wall)
+
+
+# CUgraphNodeType (cuda.h)
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait_event", 7: "event_record",
+              10: "mem_alloc", 11: "mem_free", 13: "conditional"}
+
+
+def graph_node_types(handle):
+    """The nodes of a CUDA graph (its ``cudaGraph_t`` as an int) counted
+    by type, from `libcuda` (`cuGraphGetNodes`, `cuGraphNodeGetType`);
+    None, with the reason printed, where it does not answer."""
+    import ctypes
+
+    try:
+        cu = ctypes.CDLL("libcuda.so.1")
+        graph, n = ctypes.c_void_p(handle), ctypes.c_size_t(0)
+        r = cu.cuGraphGetNodes(graph, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        if r == 0:
+            r = cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+        out, kind = {}, ctypes.c_int()
+        for node in nodes if r == 0 else ():
+            r = r or cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                           ctypes.byref(kind))
+            name = NODE_TYPES.get(kind.value, str(kind.value))
+            out[name] = out.get(name, 0) + 1
+        if r != 0:
+            raise OSError(f"CUresult {r}")
+        return out
+    except (OSError, AttributeError) as e:
+        log(f"[graphs] graph nodes not counted: {e}")
+        return None
+
+
+def capture_census(engine, opts, qp):
+    """The captured solve of ``qp`` (a serving log's first step) made
+    afresh with the kernel counters read around each of its stages: the
+    hand kernels' launches in one replay of the cold and of the warm
+    graphs, exact (each launch under capture is one node of the graph),
+    checked equal to the warm-up's; and each graph's nodes by type from
+    `libcuda` (`graph_node_types`, the graphs kept for it)."""
+    import torch
+
+    from fcc_qp_tpu_torch.core.graphs import (CapturedSolve, SolveBuffers,
+                                              classify, engine_options,
+                                              layout, pack_host)
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+
+    shape = CASSIE.shape
+    opts = engine_options(opts, engine)
+    host = torch.empty((layout(shape)[-1],), dtype=torch.float64)
+    pack_host(shape, [qp[k] for k in KEYS], host)
+    solve = CapturedSolve(shape, opts, engine,
+                          SolveBuffers(shape, engine, "cuda", opts.rho),
+                          classify(shape, engine, host))
+    calls = []
+
+    def counted(fn):
+        def run(*args):
+            before = counts()
+            out = fn(*args)
+            after = counts()
+            calls.append((args[-1], torch.cuda.is_current_stream_capturing(),
+                          {k: after[k] - before[k] for k in after}))
+            return out
+        return run
+
+    solve._prepare = counted(solve._prepare)
+    solve._iterate = counted(solve._iterate)
+    graph_cls = torch.cuda.CUDAGraph
+    try:
+        graph_cls(keep_graph=True)
+        keep = True
+    except TypeError:
+        keep = False
+        log("[graphs] graph nodes not counted: this torch keeps no graph")
+    if keep:
+        torch.cuda.CUDAGraph = lambda: graph_cls(keep_graph=True)
+    try:
+        solve.buffers.inp.copy_(host)
+        solve.run(warm_start=False)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph = graph_cls
+    check_captured(f"capture census {engine}", [solve])
+    per = {}
+    for warm in (False, True):
+        for captured in (False, True):
+            tot = {}
+            for w, cap, d in calls:
+                if (w, cap) == (warm, captured):
+                    tot = {k: tot.get(k, 0) + v for k, v in d.items()}
+            per[warm, captured] = tot
+        check(per[warm, True] == per[warm, False], f"capture census {engine}: "
+              f"the graph's launches {per[warm, True]} are not the warm-up's "
+              f"{per[warm, False]}")
+    nodes = None
+    if keep:
+        nodes = {("warm" if w else "cold"): {
+            stage: graph_node_types(g.raw_cuda_graph())
+            for stage, g in zip(("operator", "iteration"),
+                                solve._captured[w][:2])}
+            for w in (False, True)}
+    return dict(cold=per[False, True], warm=per[True, True], nodes=nodes)
+
+
+def profile_submits(server, seq, engine):
+    """A submit loop under `torch.profiler`, after the server's first
+    submit (the capture) retired outside the trace: the host reads
+    (``aten::_local_scalar_dense``), the synchronizations outside a
+    ``FCCQPServer.retire`` range, and per submit the graph launches, and
+    the kernel launches, the hand kernels' launches and the kernels'
+    summed durations the trace shows (``traced_*``: a lower bound, as a
+    trace can lose kernel records; the durations inflated by the
+    profiler's per-kernel cost)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    server.result(server.submit(*(seq[0][k] for k in KEYS)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("submit_loop"):
+            for qp in seq[1:]:
+                server.submit(*(qp[k] for k in KEYS))
+            server.drain()
+    n = len(seq) - 1
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    cpu = [e for e in events if e.device_type != cuda]
+    spans = {name: [(r.time_range.start, r.time_range.end) for r in cpu
+                    if r.name == name]
+             for name in ("submit_loop", "FCCQPServer.retire")}
+    within = lambda e, name: any(s0 <= e.time_range.start <= s1
+                                 for s0, s1 in spans[name])
+    # the synchronizations of the loop (the profiler's own, at its start
+    # and stop, fall outside it)
+    syncs = [e for e in cpu if "Synchronize" in e.name
+             and within(e, "submit_loop")]
+    outside = [e.name for e in syncs if not within(e, "FCCQPServer.retire")]
+    kernels = [e for e in events if e.device_type == cuda
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    hand = {name: sum(name in e.name for e in kernels)
+            for name in GRAPH_KERNELS[engine]}
+    return dict(
+        submits=n,
+        retires=sum(e.name == "FCCQPServer.retire" for e in cpu),
+        host_reads=sum(e.name == "aten::_local_scalar_dense" for e in cpu),
+        syncs=len(syncs), syncs_outside_retire=len(outside),
+        sync_names_outside_retire=sorted(set(outside)),
+        graph_launches_per_submit=sum(e.name == "cudaGraphLaunch"
+                                      for e in cpu) / n,
+        traced_kernels_per_submit=len(kernels) / n,
+        traced_hand_kernels_per_submit={k: v / n for k, v in hand.items()},
+        profiled_kernel_ms_per_submit=sum(
+            e.time_range.end - e.time_range.start for e in kernels)
+        * 1e-3 / n)
 
 
 def serving_phase():
     """Phase 15: `FCCQPServer` over a 64-step walking log at depth 1, 2, 4
-    and 8 on both engines, each run equal to the serial `FCCQP` loop
-    (statuses equal, |dz| <= 1e-9 on ds, <= 1e-8 on f64: the JAX package's
-    server bars); ms per result (submit to retire) p50 / p95 and results
-    per second per depth."""
+    and 8 on both engines, replaying its captured graphs: each run equal
+    to the serial `FCCQP` loop (statuses equal, |dz| <= 1e-9 on ds,
+    <= 1e-8 on f64: the JAX package's server bars) and both bit for bit
+    to the eager static solve; ms per result (submit to retire) p50 / p95
+    and results per second per depth beside the eager solves'; a
+    profiled submit loop per depth (`profile_submits`)."""
     import numpy as np
 
     from fcc_qp_tpu_torch import FCCQP, FCCQPOptions, FCCQPServer
     from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_sequence
 
     seq = generate_osc_sequence(CASSIE, SERVE_STEPS, seed=1)
-    keys = ("Q", "b", "A_eq", "b_eq", "friction_coeffs", "lb", "ub")
-    launches, table = {}, {}
+    launches, table, traces, census = {}, {}, {}, {}
     for engine, o, dz_bar in (("ds", SERVE_DS_OPTS, 1e-9),
                               ("f64", SERVE_F64_OPTS, 1e-8)):
         opts = FCCQPOptions(**o)
+        census[engine] = c = capture_census(engine, opts, seq[0])
+        kernel_nodes = (None if c["nodes"] is None or None in (
+            c["nodes"]["warm"]["operator"], c["nodes"]["warm"]["iteration"])
+            else sum(c["nodes"]["warm"][g].get("kernel", 0)
+                     for g in ("operator", "iteration")))
+        c["kernel_nodes_warm"] = kernel_nodes
+        check(kernel_nodes is None or kernel_nodes >= sum(c["warm"].values()),
+              f"capture census {engine}: {kernel_nodes} kernel nodes, fewer "
+              f"than the hand kernels' launches {c['warm']}")
+        log(f"[graphs:{engine}] capture census: hand kernels per replay "
+            f"(counted under capture) cold {json.dumps(c['cold'])}, warm "
+            f"{json.dumps(c['warm'])}; kernel nodes in the warm graphs "
+            f"{kernel_nodes}; nodes by type " + json.dumps(c["nodes"]))
+        t0 = time.perf_counter()
+        ref = eager_static_chain(engine, opts, seq)
+        static_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eager_walls, eager_rows = eager_dropin_walls(engine, opts, seq)
+        eager_wall = time.perf_counter() - t0
         solver = FCCQP(60, 38, 12, 38, engine=engine)
         solver.set_options(opts)
-        z_ref, st_ref = [], []
+        res = []
         t0 = time.perf_counter()
         for i, qp in enumerate(seq):
             solver.set_warm_start(i > 0)
-            solver.Solve(*(qp[k] for k in keys))
-            r = solver.GetSolution()
-            z_ref.append(r.z)
-            st_ref.append(r.details.solve_status)
+            solver.Solve(*(qp[k] for k in KEYS))
+            res.append(solver.GetSolution())
         serial_wall = time.perf_counter() - t0
-        z_ref, st_ref = np.stack(z_ref), np.array(st_ref)
-        table[engine] = {"serial_results_per_s": SERVE_STEPS / serial_wall,
-                         "kSuccess": int((st_ref == 0).sum())}
+        check_captured(f"serving {engine} serial loop",
+                       solver._captures.values())
+        check_bit_equal(f"serving {engine} serial FCCQP loop",
+                        packed_results(res, 60), ref)
+        same, dz_eager = check_against_eager(
+            f"serving {engine} serial FCCQP loop", engine,
+            packed_results(res, 60), eager_rows, dz_bar)
+        z_ref = np.stack([r.z for r in res])
+        st_ref = np.array([r.details.solve_status for r in res])
+        table[engine] = {
+            "serial_results_per_s": SERVE_STEPS / serial_wall,
+            "eager_static_results_per_s": SERVE_STEPS / static_wall,
+            "eager_results_per_s": SERVE_STEPS / eager_wall,
+            "eager_p50_ms": float(np.median(eager_walls) * 1e3),
+            "bit_equal_to_eager": same, "max_dz_to_eager": dz_eager,
+            "kSuccess": int((st_ref == 0).sum())}
         for depth in SERVE_DEPTHS:
             server = FCCQPServer(CASSIE.shape, opts, depth=depth,
                                  engine=engine)
             reset_counts()
             t0 = time.perf_counter()
-            tickets = [server.submit(*(qp[k] for k in keys)) for qp in seq]
+            tickets = [server.submit(*(seq[0][k] for k in KEYS))]
+            t_capture = time.perf_counter() - t0
+            tickets += [server.submit(*(qp[k] for k in KEYS))
+                        for qp in seq[1:]]
             results = dict(server.drain())
             wall = time.perf_counter() - t0
+            # the first submit captures (and queues the first replay)
+            steady = (SERVE_STEPS - 1) / (wall - t_capture)
             launches[f"{engine}_d{depth}"] = counts()
+            check_captured(f"serving {engine} depth {depth}", [server._solve])
             check(sorted(results) == tickets,
                   f"serving {engine} depth {depth}: tickets out of order")
-            z = np.stack([results[t].z for t in tickets])
-            st = np.array([results[t].details.solve_status for t in tickets])
-            ms = np.array([results[t].details.solve_time
-                           for t in tickets]) * 1e3
+            got = [results[t] for t in tickets]
+            check_bit_equal(f"serving {engine} depth {depth}",
+                            packed_results(got, 60), ref)
+            z = np.stack([r.z for r in got])
+            st = np.array([r.details.solve_status for r in got])
+            ms = np.array([r.details.solve_time for r in got]) * 1e3
             dz = float(np.abs(z - z_ref).max())
             check(np.array_equal(st, st_ref),
                   f"serving {engine} depth {depth}: statuses differ from "
                   f"the serial loop")
             check(dz <= dz_bar, f"serving {engine} depth {depth}: |dz| "
                   f"{dz:.3e} > {dz_bar:.0e}")
+            trace = profile_submits(
+                FCCQPServer(CASSIE.shape, opts, depth=depth, engine=engine),
+                seq[:PROFILED_SUBMITS + 1], engine)
+            if depth == 1:
+                # a replay's device time: the warm graphs replayed back to
+                # back behind a spin kernel (this server's chain, dropped)
+                trace["replay_device_ms"], _ = time_cuda(
+                    lambda: server._solve.run(warm_start=True), reps=20)
+            traces[f"{engine}_d{depth}"] = trace
+            check(trace["host_reads"] == 0,
+                  f"serving {engine} depth {depth}: {trace['host_reads']} "
+                  f"host reads in the profiled submit loop")
+            check(trace["syncs_outside_retire"] == 0,
+                  f"serving {engine} depth {depth}: a synchronization "
+                  f"outside a retire: {trace['sync_names_outside_retire']}")
+            for name, k in trace["traced_hand_kernels_per_submit"].items():
+                check(k > 0, f"serving {engine}: the replay trace names no "
+                      f"{name}")
             table[engine][depth] = dict(
                 p50_ms=float(np.median(ms)),
                 p95_ms=float(np.percentile(ms, 95)),
-                results_per_s=SERVE_STEPS / wall, max_dz=dz)
+                results_per_s=SERVE_STEPS / wall,
+                results_per_s_after_capture=steady,
+                first_submit_s=t_capture, max_dz=dz)
         log(f"[serving:{engine}] FCCQPServer over {SERVE_STEPS} steps, "
-            "equal to the serial FCCQP loop at every depth (statuses, "
-            f"|dz| <= {dz_bar:.0e}); per depth, ms per result (submit to "
-            "retire) and results/s: " + json.dumps(table[engine]))
+            "captured, equal to the serial FCCQP loop at every depth "
+            f"(statuses, |dz| <= {dz_bar:.0e}) and bit for bit to the eager "
+            "static solve; per depth, ms per result (submit to retire) and "
+            "results/s (the first submit captures), beside the serial graph "
+            "loop, the eager static solve and the eager (uncaptured) "
+            "solve: " + json.dumps(table[engine]))
+        log(f"[graphs:{engine}] profiled submit loops ({PROFILED_SUBMITS} "
+            "submits after the capture), per depth: "
+            + json.dumps({k: v for k, v in traces.items()
+                          if k.startswith(engine)}))
     check(launches["f64_d1"]["admm_chunk_full_f64"] > 0,
           "serving f64: admm_chunk_full_f64 was not launched")
     check(launches["ds_d1"]["admm_chunk_f32"] > 0,
           "serving ds: admm_chunk_f32 was not launched")
-    return launches, table
+    return launches, table, traces, census
 
 
 def sharded_phase(stacked, walking, bench, dev=None):
@@ -1809,7 +2255,8 @@ def main() -> int:
     from fcc_qp_tpu_torch.models.osc import QUADRUPED
 
     launches_full, rec_full, full_device = full_phase(engine)
-    launches_dropin, rec_dropin = dropin_phase(solver_mod)
+    launches_dropin, rec_dropin, rec_dropin_ds, dropin_table = dropin_phase(
+        solver_mod)
     for r in records:
         r["launches_full"] = launches_full[r["name"]]
         r["launches_dropin"] = sum(v[r["name"]]
@@ -1832,6 +2279,19 @@ def main() -> int:
           "last chunk")
     check(b1["B"] == 1 and b1["active"] == 1, "the drop-in chunk is not one "
           "active instance")
+    for (name, kernel, plain, prec, _), r in zip(specs, records):
+        rec = rec_dropin_ds[name]
+        check(rec.first is not None, f"{name}: not launched in the ds "
+              f"drop-in's eager static solve")
+        for case, got in (("b1", rec.first),
+                          ("b1_last", rec.last_active or rec.last)):
+            v = compare(name, case, kernel, plain, *got, prec, exact=True)
+            check(v["B"] == 1, f"{name} [{case}]: B = {v['B']}, not 1")
+            r.update({f"{key}_{case}": v[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "active",
+                "max_abs_err")})
+        check(r["active_b1"] + r["active_b1_last"] > 0, f"{name}: the "
+              f"instance iterates in neither B = 1 case")
     qqp = to_ds_batch(stack_qp_dicts(generate_osc_batch(QUADRUPED, 256,
                                                         seed=0)))
     check(QUADRUPED.shape.lambda_c_start % 32 in (30, 31),
@@ -1936,11 +2396,16 @@ def main() -> int:
         engine, qp, bench, two_phase, specs, records)
     launches_adapt, adapt_share = adaptive_phase(qp, bench)
     launches_fast, fast_out = fast_phase(stacked)
-    launches_f32, f32_first, f32_tail, f32_out = f32_phase(stacked,
+    launches_f32, f32_first, f32_out = f32_phase(stacked,
                                                            solver_mod)
-    launches_serve, serve_table = serving_phase()
+    launches_serve, serve_table, serve_traces, census = serving_phase()
     launches_shard, shard_times, sweep = sharded_phase(stacked, log_stacked,
                                                        bench)
+    def per_replay(name, graphs="warm"):
+        """The kernel's launches in one replay of each engine's warm (or
+        cold) graphs, counted under capture (`capture_census`)."""
+        return {eng: census[eng][graphs][name] for eng in ("ds", "f64")}
+
     for r in records:
         nm = r["name"]
         paths = dict(
@@ -1953,6 +2418,8 @@ def main() -> int:
         for path, n in paths.items():
             r[f"launches_{path}"] = n
         r["launches"] += sum(paths.values())
+        r["launches_per_replay"] = per_replay(nm)
+        r["launches_per_replay_cold"] = per_replay(nm, "cold")
     full_rec.update(
         ms_alpha=full_alpha["ms"], plain_ms_alpha=full_alpha["plain_ms"],
         bound_ms_alpha=full_alpha["bound_ms"],
@@ -1975,15 +2442,17 @@ def main() -> int:
         max_abs_err=f32_first["max_abs_err"], ms=f32_first["ms"],
         plain_ms=f32_first["plain_ms"], bound_ms=f32_first["bound_ms"],
         bound_by=f32_first["bound_by"], library_ms=None,
-        ms_tail=f32_tail["ms"], plain_ms_tail=f32_tail["plain_ms"],
-        bound_ms_tail=f32_tail["bound_ms"], bound_by_tail=f32_tail["bound_by"],
-        active_tail=f32_tail["active"],
-        max_abs_err_tail=f32_tail["max_abs_err"],
+        launches_per_replay=per_replay("admm_chunk_full_f32"),
+        launches_per_replay_cold=per_replay("admm_chunk_full_f32", "cold"),
         blocks_per_sm={n: pallas_admm.blocks_per_sm("admm_chunk_full_f32", n)
                        for n in (24, 42, 60, 76, 90)},
         registers={k: v[0] for k, v in ptxas.items()
                    if k.startswith("admm_chunk_full_warp<float")},
     ))
+    log("[graphs] the captured B = 1 solve (drop-in, per Solve; serving, "
+        "per depth, with each depth's profiled submit loop): "
+        + json.dumps(dict(dropin=dropin_table, serving=serve_table,
+                          traces=serve_traces, census=census)))
     log("[slice] this slice's paths: " + json.dumps(dict(
         io=io_rec, alpha_shares=alpha_shares, adaptive_share=adapt_share,
         fast=fast_out, f32=f32_out, sharded_walls=shard_times,

@@ -5,13 +5,23 @@ The `FCCQP` class has the reference's method surface: constructed from
 ``(num_vars, num_equality_constraints, nc, lambda_c_start)``, with
 `Solve`, `GetSolution`, `set_rho`, `set_max_iter`, `set_options`,
 `set_warm_start` and `contact_vars_start`. It is a thin stateful shell
-over the functional engines: it owns the warm state (the reference's
-persistent members) and measures wall-clock ``solve_time`` /
-``factorization_time`` with device synchronizes.
+over the engines' static B = 1 solve (`core.graphs.CapturedSolve`): on
+the card every `Solve` is one upload, a replay of the captured operator
+graph and of the iteration graph, and one download, and the warm state
+(the reference's persistent members) stays in the graphs' buffers on
+the device. ``factorization_time`` is the operator replay's span and
+``solve_time`` both replays', each read from CUDA events recorded
+between the replays; on the CPU the same solve runs eagerly and the
+spans are host wall times.
+
+The first `Solve` of each option set (and, on the ds engine, of each
+pattern of finite bounds) captures its graphs, which takes a fraction of
+a second; `MAX_CAPTURES` of them are kept.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 from typing import Optional
 
@@ -19,16 +29,26 @@ import numpy as np
 import torch
 
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
-from fcc_qp_tpu_torch.core.ds_engine import (
-    QPBatchDS,
-    resolve_device,
-    solve_batched_ds,
+from fcc_qp_tpu_torch.core.ds_engine import resolve_device
+from fcc_qp_tpu_torch.core.graphs import (
+    INT_STATS,
+    STATS,
+    CapturedSolve,
+    SolveBuffers,
+    classify,
+    engine_options,
+    host_fields,
+    layout,
+    pack_host,
 )
-from fcc_qp_tpu_torch.core.solver import _solve_core
-from fcc_qp_tpu_torch.ops.kkt import admm_operator
 from fcc_qp_tpu_torch.ops.projections import validate_bounds
 from fcc_qp_tpu_torch.types import FCCQPDetails, FCCQPSolution, QPBatch
-from fcc_qp_tpu_torch.utils.timing import sync
+
+# the captures an `FCCQP` keeps, one per (options, classification): a new
+# one costs a capture (`chip_smoke.py` prints each capturing `Solve`'s
+# wall), so a controller cycling through more option sets or bound
+# patterns than this pays it again
+MAX_CAPTURES = 8
 
 
 class FCCQP:
@@ -39,7 +59,7 @@ class FCCQP:
         it wherever the device has native f64 and the double-single engine
         elsewhere (a TPU); an H100 has f64, so "auto" is "f64" here.
       * ``"f64"``: the reference's algorithm in f64 (`core.solver`), the
-        full-layout ADMM kernel in chunks.
+        full-layout ADMM kernel in one launch.
       * ``"ds"``: the batched engine on a batch of one with Ruiz scaling,
         constrained splitting, polish and operator presolve forced on; its
         ``rho`` acts in the equilibrated space (0.05 is a good value), and
@@ -50,7 +70,8 @@ class FCCQP:
     the ds engine in its own precisions whatever it says.
 
     ``device``: where the solves run (default CUDA; raises when there is
-    no card). Inputs may be numpy arrays or tensors on any device.
+    no card). Inputs may be numpy arrays or tensors on any device; they
+    are validated on the host and uploaded in one copy.
     """
 
     def __init__(self, num_vars: int, num_equality_constraints: int,
@@ -65,10 +86,20 @@ class FCCQP:
             raise ValueError("engine must be 'auto', 'f64', or 'ds'")
         self.engine = "f64" if engine == "auto" else engine
         self.device = resolve_device(device)
+        self._cuda = self.device.type == "cuda"
         self._options = FCCQPOptions()
         self._warm_start = False
-        self._warm = None
-        self._solution: Optional[FCCQPSolution] = None
+        # the warm chain lives in these buffers, shared by the captures
+        # of every option set (and classification) this object solves
+        self._buffers = None
+        self._has_warm = False
+        self._captures: collections.OrderedDict = collections.OrderedDict()
+        n_in, n_out = layout(self.shape)[-1], num_vars + len(STATS)
+        self._host_in = torch.empty((n_in,), dtype=torch.float64,
+                                    pin_memory=self._cuda)
+        self._host_out = torch.empty((n_out,), dtype=torch.float64,
+                                     pin_memory=self._cuda)
+        self._solution: Optional[np.ndarray] = None
         self._solve_time = 0.0
         self._factorization_time = 0.0
 
@@ -118,70 +149,65 @@ class FCCQP:
         if not bool(validate_bounds(qp.lb, qp.ub)):
             raise ValueError("invalid bounds: lb > ub somewhere")
 
+    def _captured(self, host: torch.Tensor) -> CapturedSolve:
+        """The captured solve of the current options and (ds) of this
+        problem's classification, made at its first use; the least
+        recently used of more than `MAX_CAPTURES` is dropped, and with it
+        its graphs' memory."""
+        opts = engine_options(self._options, self.engine)
+        key = (opts, classify(self.shape, self.engine, host))
+        if key in self._captures:
+            self._captures.move_to_end(key)
+        else:
+            if self._buffers is None:
+                self._buffers = SolveBuffers(self.shape, self.engine,
+                                             self.device, opts.rho)
+            self._captures[key] = CapturedSolve(
+                self.shape, opts, self.engine, self._buffers, key[1])
+            if len(self._captures) > MAX_CAPTURES:
+                self._captures.popitem(last=False)
+        return self._captures[key]
+
     def Solve(self, Q, b, A_eq, b_eq, friction_coeffs, lb, ub):
-        t = lambda a: torch.as_tensor(np.asarray(a, np.float64)
-                                      if not isinstance(a, torch.Tensor)
-                                      else a).to(self.device, torch.float64)
-        qp = QPBatch(Q=t(Q), b=t(b), A_eq=t(A_eq), b_eq=t(b_eq),
-                     friction_coeffs=t(friction_coeffs), lb=t(lb), ub=t(ub))
-        self._validate(qp)
-        warm_start = self._warm_start and self._warm is not None
-        warm = self._warm if warm_start else None
-        if self.engine == "ds":
-            return self._solve_ds(qp, warm, warm_start)
-
-        # the operator is built once, passed into the solve, and its span
-        # is the factorization time; solve_time is the whole Solve
-        qp1 = QPBatch(*(a[None] for a in qp.__dict__.values()))
-        sync(self.device)
-        t0 = time.perf_counter()
-        operator = admm_operator(qp1.Q, qp1.b, qp1.A_eq, qp1.b_eq,
-                                 self._options.rho)
-        sync(self.device)
-        t1 = time.perf_counter()
-        sol, new_warm = _solve_core(qp1, self.shape, self._options, warm,
-                                    warm_start, operator)
-        sync(self.device)
-        t2 = time.perf_counter()
-        self._factorization_time = t1 - t0
-        self._solve_time = t2 - t0
-        self._warm = new_warm
-        self._solution = sol
-
-    def _solve_ds(self, qp: QPBatch, warm, warm_start: bool):
-        """The batched engine on a batch of one, with scaling, constrained
-        splitting, polish and operator presolve forced on: they keep the
-        reference's solution and tolerance contract (tolerances checked
-        in unscaled units; the polish validates itself)."""
-        # batch-last with B = 1
-        qpds = QPBatchDS(*(v[..., None].contiguous()
-                           for v in qp.__dict__.values()))
-        opts_ds = self._options.replace(
-            scaling=True, splitting="constrained", polish=True,
-            presolve="operator",
-        )
-        sol, new_warm = solve_batched_ds(
-            qpds, self.shape, opts_ds, warm=warm, warm_start=warm_start,
-            device=self.device,
-        )
-        self._solve_time = float(sol.details.solve_time[0])
-        self._factorization_time = float(sol.details.factorization_time[0])
-        self._warm = new_warm
-        self._solution = sol
+        fields = host_fields((Q, b, A_eq, b_eq, friction_coeffs, lb, ub))
+        self._validate(QPBatch(*(torch.from_numpy(a) for a in fields)))
+        pack_host(self.shape, fields, self._host_in)
+        solve = self._captured(self._host_in)
+        solve.buffers.inp.copy_(self._host_in, non_blocking=self._cuda)
+        warm_start = self._warm_start and self._has_warm
+        if self._cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            solve.run(warm_start, between=ev[1].record)
+            ev[2].record()
+            self._host_out.copy_(solve.buffers.out, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+            copied.synchronize()
+            self._factorization_time = ev[0].elapsed_time(ev[1]) * 1e-3
+            self._solve_time = ev[0].elapsed_time(ev[2]) * 1e-3
+        else:
+            t = [time.perf_counter()]
+            solve.run(warm_start,
+                      between=lambda: t.append(time.perf_counter()))
+            self._host_out.copy_(solve.buffers.out)
+            t.append(time.perf_counter())
+            self._factorization_time = t[1] - t[0]
+            self._solve_time = t[2] - t[0]
+        self._has_warm = True
+        self._solution = self._host_out.numpy().copy()
 
     def GetSolution(self) -> FCCQPSolution:
         """The last solve's result as host types: Python numbers in the
         details and a numpy ``z`` of shape (n,)."""
         if self._solution is None:
             raise RuntimeError("call Solve() first")
-        d = self._solution.details
-        one = lambda v, kind: kind(v.reshape(-1)[0].item())
-        ints = ("n_iter", "solve_status", "n_iter_f32", "n_iter_ds",
-                "polish_attempts", "polish_accepted")
-        fields = {k: one(v, int if k in ints else float)
-                  for k, v in d.__dict__.items()}
-        fields.update(solve_time=self._solve_time,
-                      factorization_time=self._factorization_time)
-        z = self._solution.z.reshape(-1, self.shape.num_vars)[0]
-        return FCCQPSolution(details=FCCQPDetails(**fields),
-                             z=z.cpu().numpy())
+        n = self.shape.num_vars
+        v = self._solution
+        fields = {k: (int(x) if k in INT_STATS else float(x))
+                  for k, x in zip(STATS, v[n:].tolist())}
+        return FCCQPSolution(
+            details=FCCQPDetails(solve_time=self._solve_time,
+                                 factorization_time=self._factorization_time,
+                                 **fields),
+            z=v[:n].copy())

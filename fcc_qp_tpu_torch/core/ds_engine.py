@@ -31,6 +31,12 @@ it whenever neither scaling, constrained splitting nor polish is on.
 
 The JAX engine's `lax.while_loop` over chunks is a Python loop here,
 with the convergence test between chunks (one host read per chunk).
+With ``static=True`` (batches of at most 128; the form `core.graphs`
+captures as a CUDA graph) the reduced path reads nothing back: each
+loop runs to the bound its shapes and options give it, every chunk,
+polish round and adaptation the eager path would skip is computed and
+discarded by a device-side select, and every rescue pass gathers the
+whole batch; the results are the eager ones bit for bit.
 Both engines take over-relaxation (``alpha``, inside the kernels) and
 adaptive rho (between chunks: the residual-balance rule, the scaled
 duals rescaled to keep the unscaled ones, the operator rebuilt only when
@@ -60,6 +66,9 @@ import torch
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
 from fcc_qp_tpu_torch.ops.ds_linalg import (
     assemble_kkt_ds,
+    check_static_batch,
+    gathered_passes,
+    index_tensor,
     kkt_inverse_blocks_refined_ds,
     kkt_inverse_f32_refresh,
     kkt_inverse_f32_seed,
@@ -302,7 +311,7 @@ def _alpha(opts: FCCQPOptions) -> float:
 
 
 def _rho_step(prim, dual, done, rho, opts: FCCQPOptions,
-              dtype=torch.float32):
+              dtype=torch.float32, static: bool = False):
     """The adaptive-rho rule, computed in ``dtype`` (rho's): f32 from the
     f32-rounded residual norms on both ds engines, as the JAX engine does;
     the data's dtype on the batch-level engine. Where an unfinished
@@ -310,7 +319,8 @@ def _rho_step(prim, dual, done, rho, opts: FCCQPOptions,
     tolerance, ``rho <- clip(rho * sqrt(prim / dual))``. Returns
     ``(new_rho, scale)`` with ``scale = rho_old / rho_new`` (1 where rho
     did not change; the scaled duals take it so that the unscaled ones
-    stay), or None when no rho changed."""
+    stay), or None when no rho changed; ``static``: ``(new_rho, scale,
+    changed)`` with ``changed`` the device flag that any rho changed."""
     tol = opts.adaptive_rho_tolerance
     prim, dual = prim.to(dtype), dual.to(dtype)
     safe = (prim > 1e-30) & (dual > 1e-30) & ~done
@@ -319,9 +329,12 @@ def _rho_step(prim, dual, done, rho, opts: FCCQPOptions,
     new_rho = torch.where(
         trigger, torch.clamp(rho * ratio, opts.rho_min, opts.rho_max), rho)
     changed = new_rho != rho
+    scale = torch.where(changed, rho / new_rho, torch.ones_like(rho))
+    if static:
+        return new_rho, scale, changed.any()
     if not bool(changed.any()):
         return None
-    return new_rho, torch.where(changed, rho / new_rho, torch.ones_like(rho))
+    return new_rho, scale
 
 
 class _PrepReduced(NamedTuple):
@@ -389,14 +402,16 @@ def _reduced_blocks(Fci: torch.Tensor, ci_t: torch.Tensor):
     return Fcc, Fcolj
 
 
-def _factor_reduced(qp: QPBatchDS, rho, ci, mask, refine_steps: int):
+def _factor_reduced(qp: QPBatchDS, rho, ci, mask, refine_steps: int,
+                    static: bool = False):
     """Partial-splitting operator from the f64 Schur-Cholesky route
     (`ops.ds_linalg.kkt_inverse_blocks_refined_ds`): the fallback for
     instances the hybrid seed cannot serve. Returns
     (Fcc, xc_const, Fcolj, x_const)."""
-    ci_t = torch.as_tensor(ci, device=qp.b.device)
+    ci_t = index_tensor(ci, qp.b.device)
     F, G = kkt_inverse_blocks_refined_ds(
-        qp.Q, qp.A_eq, _rho_diag(rho, mask), refine_steps=refine_steps
+        qp.Q, qp.A_eq, _rho_diag(rho, mask), refine_steps=refine_steps,
+        static=static,
     )
     x_const = (
         matvec_ds(transpose_ds(G), qp.b_eq) - matvec_ds(transpose_ds(F), qp.b)
@@ -407,17 +422,21 @@ def _factor_reduced(qp: QPBatchDS, rho, ci, mask, refine_steps: int):
 
 
 def _factor_reduced_hybrid(qp: QPBatchDS, rho, ci, mask, passes: int,
-                           kkt_seed: Optional[torch.Tensor] = None):
+                           kkt_seed: Optional[torch.Tensor] = None,
+                           static: bool = False):
     """Hybrid operator: f32 Schur NS seed + f64 refinement of ONLY the
     needed inverse columns and the constant term. Instances whose seed
     did not contract, or whose refined constant-term solve misses 1e-5
     relative residual against the true KKT, are re-factored on the f64
     Schur-Cholesky route. ``kkt_seed``: a carried f32 inverse
-    (`OperatorCache.kkt_seed`), refreshed instead of rebuilt. Returns
-    (Fcc, xc_const, Fcolj, x_const, X32)."""
+    (`OperatorCache.kkt_seed`), refreshed instead of rebuilt.
+    ``static``: the fallback runs on the whole batch and is selected per
+    instance, as the JAX engine's `lax.cond` branch does (bit for bit the
+    eager gather when one instance, or none, needs it). Returns (Fcc,
+    xc_const, Fcolj, x_const, X32)."""
     n = qp.Q.shape[0]
     dev = qp.b.device
-    ci_t = torch.as_tensor(ci, device=dev)
+    ci_t = index_tensor(ci, dev)
     rd = _rho_diag(rho, mask)
     M = assemble_kkt_ds(qp.Q, qp.A_eq, rd)
     if kkt_seed is None:
@@ -434,7 +453,14 @@ def _factor_reduced_hybrid(qp: QPBatchDS, rho, ci, mask, passes: int,
     rres = (M @ xfull.T[:, :, None])[:, :, 0].T - r
     rel = rres.abs().amax(dim=0) / (1.0 + r.abs().amax(dim=0))
     bad = (seed_res > 0.5) | (rel > 1e-5)
-    if bool(bad.any()):
+    if static:
+        ds_out = _factor_reduced(qp, rho, ci, mask, max(passes - 1, 1),
+                                 static=True)
+        Fcc, xc_const, Fcolj, x_const = (
+            torch.where(bad, sub, full)
+            for full, sub in zip((Fcc, xc_const, Fcolj, x_const), ds_out)
+        )
+    elif bool(bad.any()):
         idx = torch.nonzero(bad)[:, 0]
         sel = torch.ones_like(idx, dtype=torch.bool)
         ds_out = _factor_reduced(
@@ -449,7 +475,8 @@ def _factor_reduced_hybrid(qp: QPBatchDS, rho, ci, mask, passes: int,
 
 def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask,
                         kkt_seed: Optional[torch.Tensor] = None,
-                        clock: Optional[StageClock] = None):
+                        clock: Optional[StageClock] = None,
+                        static: bool = False):
     """f32-only reduced operator: the NS KKT inverse seed sliced to the
     hot-loop blocks, no refinement (accuracy ~1e-3 relative, enough for
     the coarse approach phase + polish). Returns
@@ -460,10 +487,11 @@ def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask,
     refreshed against this step's KKT. Instances whose refresh does not
     contract (the data jumped) get a cold seed build, GATHERED in passes
     of ``min(B, max(128, B // 8))`` instances and looping until every
-    one is rebuilt; those still flagged after that are ``bad``.
-    ``clock`` counts the rescued instances (``n_kkt_rescue``)."""
+    one is rebuilt (``static``: one masked pass, which covers a batch of
+    up to 128); those still flagged after that are ``bad``. ``clock``
+    counts the rescued instances (``n_kkt_rescue``)."""
     n = qp.Q.shape[0]
-    ci_t = torch.as_tensor(ci, device=qp.b.device)
+    ci_t = index_tensor(ci, qp.b.device)
     rd = _rho_diag(rho, mask)
     if kkt_seed is None:
         X32, seed_res = kkt_inverse_f32_seed(qp.Q, qp.A_eq, rd)
@@ -474,14 +502,14 @@ def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask,
             clock.count("n_kkt_rescue", rem)
         B = qp.batch
         C = min(B, max(128, B // 8))
-        while bool(rem.any()):
+        for _ in gathered_passes(static, 1, lambda: rem):
             idx = torch.argsort(-rem.float(), stable=True)[:C]
             sel = rem[idx]
             Xc, rc = kkt_inverse_f32_seed(qp.Q[..., idx], qp.A_eq[..., idx],
                                           rd[:, idx])
             X32[idx] = torch.where(sel[:, None, None], Xc, X32[idx])
             seed_res[idx] = torch.where(sel, rc, seed_res[idx])
-            rem[idx] = False
+            rem.index_fill_(0, idx, False)
     r = torch.cat([-qp.b.float(), qp.b_eq.float()], dim=0)
     xfull = (X32 @ r.T[:, :, None])[:, :, 0].T
     Fcc, Fcolj = _reduced_blocks(X32[:, :n, ci_t], ci_t)
@@ -493,19 +521,22 @@ def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask,
 def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
                      clock: Optional[StageClock] = None,
                      kkt_seed: Optional[torch.Tensor] = None,
-                     scales: Optional[Scaling] = None):
+                     scales: Optional[Scaling] = None,
+                     static: bool = False):
     """Stage 1 (the "factorization" phase): equilibration, initial state
     (warm: unscaled full-space state -> scaled reduced coordinates;
     cold: the exact or the operator presolve), and the reduced KKT
     operator (hybrid, or the f64 Schur route with ``kkt_factor='ds'``).
     Requires ``len(con_idx) > 0`` (`_solve_reduced_k0` takes k = 0).
     ``kkt_seed`` / ``scales``: carried from a previous replay step
-    (`OperatorCache`)."""
+    (`OperatorCache`). ``static``: read-free (the module docstring)."""
     nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
     B = qp.batch
     dev = qp.b.device
+    if static:
+        check_static_batch(B)
     ci = np.asarray(con_idx, dtype=np.int64)
-    ci_t = torch.as_tensor(ci, device=dev)
+    ci_t = index_tensor(ci, dev)
     k = len(con_idx)
     kb = k - nc
 
@@ -515,7 +546,7 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
     d = sc.d
     inv_d = (1.0 / d).double()
     mask = torch.zeros((nv,), dtype=torch.float32, device=dev)
-    mask[ci_t] = 1.0
+    mask.index_fill_(0, ci_t, 1.0)
 
     x_init = None
     if warm_start:
@@ -530,7 +561,8 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
         rho0 = torch.full((B,), opts.rho, dtype=torch.float32, device=dev)
         mu0 = torch.zeros((k, B), dtype=torch.float64, device=dev)
         if opts.presolve == "exact":
-            x_init = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq)
+            x_init = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq,
+                                          static=static)
 
     seed_bad, X32 = None, None
     if _lazy_exact(opts):
@@ -538,17 +570,19 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
         # polish never need more; the exact build is deferred to just
         # before the endgame (`_iterate_reduced`)
         Fcc, xc_const, Fcolj, x_const, X32, seed_bad = _factor_reduced_f32(
-            qps, rho0, ci, mask, kkt_seed=kkt_seed, clock=clock
+            qps, rho0, ci, mask, kkt_seed=kkt_seed, clock=clock,
+            static=static,
         )
         Fcc, xc_const = Fcc.double(), xc_const.double()
         Fcolj, x_const = Fcolj.double(), x_const.double()
     elif opts.kkt_factor == "hybrid":
         Fcc, xc_const, Fcolj, x_const, X32 = _factor_reduced_hybrid(
-            qps, rho0, ci, mask, opts.kkt_refine_steps + 1, kkt_seed=kkt_seed
+            qps, rho0, ci, mask, opts.kkt_refine_steps + 1, kkt_seed=kkt_seed,
+            static=static,
         )
     else:
         Fcc, xc_const, Fcolj, x_const = _factor_reduced(
-            qps, rho0, ci, mask, opts.kkt_refine_steps
+            qps, rho0, ci, mask, opts.kkt_refine_steps, static=static
         )
     if x_init is None:
         x_init = x_const
@@ -570,14 +604,15 @@ def _equality_only(qp: QPBatchDS, nc: int) -> torch.Tensor:
 
 
 def _solve_reduced_k0(qp: QPBatchDS, shape: ProblemShape,
-                      opts: FCCQPOptions):
+                      opts: FCCQPOptions, static: bool = False):
     """Pure-equality batch (no constrained coordinate at all): one refined
     KKT solve on the equilibrated data is the whole solve."""
     nv = shape.num_vars
     B = qp.batch
     dev = qp.b.device
     qps, sc = _scale_reduced(qp, shape, opts)
-    x = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq) * sc.d.double()
+    x = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq,
+                             static=static) * sc.d.double()
     eq_viol = _eq_residual_inf(qp, x)
     zi = torch.zeros((B,), dtype=torch.int32, device=dev)
     zb = torch.zeros((B,), dtype=torch.float64, device=dev)
@@ -599,6 +634,7 @@ def _solve_reduced_k0(qp: QPBatchDS, shape: ProblemShape,
 
 @dataclasses.dataclass
 class _RState:
+    # the three counters are 0-d int32 device tensors on a static solve
     it: int                  # global iteration counter (chunks * K)
     next_adapt: int          # the next `it` at which rho may adapt
     n_refactor: int          # operator rebuilds after a rho change
@@ -627,11 +663,25 @@ class _Polish(NamedTuple):
     cls: torch.Tensor
 
 
+def _select(go: torch.Tensor, new, old):
+    """``new`` where the device flag ``go`` (0-d bool) is set, else
+    ``old``: a tensor, or field by field an `_RState` or a NamedTuple (a
+    field both share is kept as it is)."""
+    pick = lambda a, b: a if a is b else torch.where(go, a, b)
+    if isinstance(old, torch.Tensor):
+        return pick(new, old)
+    if dataclasses.is_dataclass(old):
+        return dataclasses.replace(old, **{
+            f.name: pick(getattr(new, f.name), getattr(old, f.name))
+            for f in dataclasses.fields(old)})
+    return type(old)(*(pick(a, b) for a, b in zip(new, old)))
+
+
 def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
                      clock: Optional[StageClock] = None,
                      polish_seed: Optional[torch.Tensor] = None,
                      polish_cls: Optional[torch.Tensor] = None,
-                     with_cache: bool = False):
+                     with_cache: bool = False, static: bool = False):
     """Stage 2: approach phase, polish, deferred exact operator, f64
     endgame and the final primal / details / warm state.
 
@@ -640,18 +690,20 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     the full batch straight from the warm state, and only the instances
     it rejects run the approach phase and the gathered retries. With
     ``with_cache`` returns ``(sol, warm, OperatorCache)``, else
-    ``(sol, warm)``."""
+    ``(sol, warm)``. ``static``: read-free (the module docstring)."""
     nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
     B = qp.batch
     dev = qp.b.device
     f64 = torch.float64
+    if static:
+        check_static_batch(B)
     clock = clock or StageClock()
     ci = np.asarray(con_idx, dtype=np.int64)
-    ci_t = torch.as_tensor(ci, device=dev)
+    ci_t = index_tensor(ci, dev)
     k = len(con_idx)
     kb = k - nc
     mask = torch.zeros((nv,), dtype=torch.float32, device=dev)
-    mask[ci_t] = 1.0
+    mask.index_fill_(0, ci_t, 1.0)
     # the JAX engine compares its residuals against f32 tolerances
     eps_b = float(np.float32(opts.eps_bound))
     eps_f = float(np.float32(opts.eps_fcone))
@@ -675,8 +727,11 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
 
     xc0 = prep.x_init[ci_t].contiguous()
     zeros_b = torch.zeros((B,), dtype=f64, device=dev)
+    count = ((lambda v: torch.full((), v, dtype=torch.int32, device=dev))
+             if static else (lambda v: v))
     st = _RState(
-        it=0, next_adapt=K, n_refactor=0, xc=xc0, s=xc0, mu=prep.mu0.contiguous(), v=xc0 - prep.mu0,
+        it=count(0), next_adapt=count(K), n_refactor=count(0), xc=xc0,
+        s=xc0, mu=prep.mu0.contiguous(), v=xc0 - prep.mu0,
         rho=prep.rho0, Fcc=prep.Fcc, xc_const=prep.xc_const,
         Fcolj=prep.Fcolj, x_const=prep.x_const,
         x_res_norm=zeros_b, lam_res_norm=zeros_b, prim_norm=zeros_b,
@@ -688,6 +743,33 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
 
     def settled(st):
         return bool((st.done | (st.itv >= max_iter)).all())
+
+    def guarded(go, step, st, *carry):
+        """``step(st, *carry)``, which updates ``st`` and returns the new
+        ``carry``, where the batch-wide flag ``go`` holds: read on the
+        host, or (static) run on a copy of ``st`` and selected field by
+        field on the device. Returns ``(st, *carry)``."""
+        if not static:
+            if bool(go):
+                carry = step(st, *carry)
+            return (st, *carry)
+        new = dataclasses.replace(st)
+        out = step(new, *carry)
+        return (_select(go, new, st),
+                *(_select(go, a, b) for a, b in zip(out, carry)))
+
+    def run_loop(st, n, budget, body):
+        """``body(st)`` while ``st.it < budget`` and an instance is
+        unsettled; static: ``n`` guarded passes, ``n`` being the loop's
+        bound (every active instance gains K iterations a pass)."""
+        if not static:
+            while st.it < budget and not settled(st):
+                body(st)
+            return st
+        for _ in range(n):
+            go = (st.it < budget) & ~(st.done | (st.itv >= max_iter)).all()
+            st = guarded(go, lambda s: body(s) or (), st)[0]
+        return st
 
     def lift32(st):
         # instances entering the f32 phase drop to f32 values; frozen
@@ -701,9 +783,9 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     def chunk32(st, Kc, tau):
         """One approach-phase chunk (`admm_chunk_f32`); frozen instances
         keep their f64 state, iterated ones come back as f32 values."""
-        if "Fcc" not in op32:
-            op32["Fcc"] = st.Fcc.float().contiguous()
-            op32["xc"] = st.xc_const.float().contiguous()
+        if op32.get("src") is not st.Fcc:
+            op32.update(src=st.Fcc, Fcc=st.Fcc.float().contiguous(),
+                        xc=st.xc_const.float().contiguous())
         (x, s, mu, v, done, _n_iter, itv, xrn, lrn, prim, dual) = admm_chunk_f32(
             op32["Fcc"], op32["xc"], lbc32, ubc32, mu_eff32, st.rho,
             tau, tau,
@@ -720,7 +802,7 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
         st.x_res_norm, st.lam_res_norm = xrn.double(), lrn.double()
         st.prim_norm, st.dual_norm = prim.double(), dual.double()
         st.itv, st.done = itv, done
-        st.it += Kc
+        st.it = st.it + Kc
 
     def chunk64(st):
         """One endgame chunk (`admm_chunk_f64`)."""
@@ -734,7 +816,15 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
             kb=kb, K=K, max_iter=max_iter, weights=wk64, inc_gate=inc_gate,
             alpha=alpha,
         )
-        st.it += K
+        st.it = st.it + K
+
+    def rebuild(rho):
+        if opts.kkt_factor == "hybrid":
+            return _factor_reduced_hybrid(qps, rho, ci, mask,
+                                          opts.kkt_refine_steps + 1,
+                                          static=static)[:4]
+        return _factor_reduced(qps, rho, ci, mask, opts.kkt_refine_steps,
+                               static=static)
 
     def adapt(st):
         """Adaptive rho after a chunk (the JAX engine's `adapt`): due at
@@ -742,27 +832,38 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
         ``adaptive_rho_max_adaptations`` rebuilds ran; the operator is
         rebuilt on the whole batch when some rho changed, with the exact
         factor (hybrid, or the f64 Schur route), as the JAX engine's
-        `_reduced_factor_fn` does."""
+        `_reduced_factor_fn` does. Static: the rule and the rebuild are
+        computed at every chunk and kept where both were due."""
         if not opts.adaptive_rho:
+            return
+        if static:
+            due = (st.it >= st.next_adapt) & (
+                st.n_refactor < opts.adaptive_rho_max_adaptations)
+            rho, scale, changed = _rho_step(st.prim_norm, st.dual_norm,
+                                            st.done, st.rho, opts,
+                                            static=True)
+            do = due & changed
+            ops_now = (st.Fcc, st.xc_const, st.Fcolj, st.x_const)
+            st.Fcc, st.xc_const, st.Fcolj, st.x_const = (
+                torch.where(do, a, b) for a, b in zip(rebuild(rho), ops_now))
+            st.next_adapt = torch.where(due, st.next_adapt * 2,
+                                        st.next_adapt)
+            st.rho = torch.where(do, rho, st.rho)
+            st.mu = torch.where(do, st.mu * scale.double()[None, :], st.mu)
+            st.n_refactor = st.n_refactor + do.int()
+            clock.count("n_refactor", do)
             return
         if not (st.it >= st.next_adapt
                 and st.n_refactor < opts.adaptive_rho_max_adaptations):
             return
-        st.next_adapt *= 2
+        st.next_adapt = st.next_adapt * 2
         step = _rho_step(st.prim_norm, st.dual_norm, st.done, st.rho, opts)
         if step is None:
             return
         st.rho, scale = step
         st.mu = st.mu * scale.double()[None, :]
-        if opts.kkt_factor == "hybrid":
-            out = _factor_reduced_hybrid(qps, st.rho, ci, mask,
-                                         opts.kkt_refine_steps + 1)[:4]
-        else:
-            out = _factor_reduced(qps, st.rho, ci, mask,
-                                  opts.kkt_refine_steps)
-        st.Fcc, st.xc_const, st.Fcolj, st.x_const = out
-        op32.clear()
-        st.n_refactor += 1
+        st.Fcc, st.xc_const, st.Fcolj, st.x_const = rebuild(st.rho)
+        st.n_refactor = st.n_refactor + 1
         clock.count("n_refactor", 1)
 
     coarse_tol = max(opts.phase1_tol, opts.polish_tol if opts.polish else 0.0)
@@ -780,6 +881,7 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
             e_scale=g(prep.e), eps_bound=opts.eps_bound,
             eps_fcone=opts.eps_fcone, act_tol=opts.polish_act_tol,
             newton_steps=opts.polish_newton_steps, clock=clock,
+            static=static,
         )
 
     def adopt(st, acc, p_s, p_mu, p_xres, p_lres, idx=None):
@@ -845,17 +947,28 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
             clock.mark("polish")
         # phase 1: plain-f32 approach to the coarse tolerance
         lift32(st)
-        while st.it < n_chunks * K and not settled(st):
+
+        def approach(st):
             chunk32(st, K, coarse_tol)
             adapt(st)
+
+        st = run_loop(st, n_chunks, n_chunks * K, approach)
         clock.mark("approach")
+
+        def pending(st, pol):
+            return ~(pol.accept | (st.itv >= max_iter)).all()
+
+        def retry(st, pol, n_attempts):
+            st.done = pol.accept.clone()
+            pol, n_attempts = attempt_gathered(st, pol, n_attempts)
+            clock.mark("polish")
+            return pol, n_attempts
+
         if warm_polish:
             # coarse-point retry of the warm-rejected instances only,
             # gathered, and skipped when attempt 0 accepted everyone
-            if not bool((pol.accept | (st.itv >= max_iter)).all()):
-                st.done = pol.accept.clone()
-                pol, n_attempts = attempt_gathered(st, pol, n_attempts)
-                clock.mark("polish")
+            st, pol, n_attempts = guarded(pending(st, pol), retry, st, pol,
+                                          n_attempts)
         else:
             # "crossed tau" is not converged
             st.done = torch.zeros_like(st.done)
@@ -869,6 +982,11 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
             # at a tighter tolerance, then retry on a capacity-gathered
             # sub-batch from the refreshed seed; a round is skipped once
             # every instance is accepted or out of iterations
+            def polish_round(st, pol, n_attempts, tau):
+                chunk32(st, opts.polish_interval, tau)
+                clock.mark("approach")
+                return retry(st, pol, n_attempts)
+
             round_tau = coarse_tol
             for _ in range(opts.polish_rounds - 1):
                 round_tau = max(
@@ -876,13 +994,10 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
                     4.0 * max(opts.eps_bound, opts.eps_fcone),
                     1e-4,
                 )
-                if bool((pol.accept | (st.itv >= max_iter)).all()):
-                    continue
-                chunk32(st, opts.polish_interval, round_tau)
-                clock.mark("approach")
-                st.done = pol.accept.clone()
-                pol, n_attempts = attempt_gathered(st, pol, n_attempts)
-                clock.mark("polish")
+                st, pol, n_attempts = guarded(
+                    pending(st, pol),
+                    lambda s, p, n, tau=round_tau: polish_round(s, p, n, tau),
+                    st, pol, n_attempts)
     itv_f32 = st.itv.clone()
 
     if _lazy_exact(opts):
@@ -896,12 +1011,12 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
         if prep.seed_bad is not None:
             rem = rem | (prep.seed_bad & ~maxed)
         C3 = min(B, 128)
-        while bool(rem.any()):
+        for _ in gathered_passes(static, 1, lambda: rem):
             idx = torch.argsort(-rem.float(), stable=True)[:C3]
             sel = rem[idx]
             out = _factor_reduced_hybrid(
                 _gather_qp(qps, idx), st.rho[idx], ci, mask,
-                opts.kkt_refine_steps + 1,
+                opts.kkt_refine_steps + 1, static=static,
             )[:4]
             st.Fcc, st.xc_const, st.Fcolj, st.x_const = (
                 _scatter_last(full, idx, sub, sel)
@@ -910,13 +1025,19 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
                 )
             )
             rem = rem.clone()
-            rem[idx] = False
+            rem.index_fill_(0, idx, False)
         clock.mark("exact_build")
 
     it_budget = 2 * n_chunks * K + (opts.polish_rounds - 1) * opts.polish_interval
-    while st.it < it_budget and not settled(st):
+
+    def endgame(st):
         chunk64(st)
         adapt(st)
+
+    # n_chunks passes settle every instance: none enters the endgame with
+    # more than max_iter iterations to go, and the budget leaves room for
+    # n_chunks passes after the approach phase and the polish rounds
+    st = run_loop(st, n_chunks, it_budget, endgame)
     clock.mark("endgame")
 
     # final full-space primal at the v that PRODUCED the accepted xc
@@ -926,8 +1047,9 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     x = x_s * d.double()
     # equality-constrained instances take the exact presolve
     eq_c = prep.eq_c
-    if nc == 0 and eq_c is not None and bool(eq_c.any()):
-        x_eq = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq)
+    if nc == 0 and eq_c is not None and (static or bool(eq_c.any())):
+        x_eq = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq,
+                                    static=static)
         x = torch.where(eq_c[None, :], x_eq * d.double(), x)
     else:
         eq_c = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -1233,24 +1355,26 @@ def solve_batched_ds(
 def _solve_ds_reduced(qp, warm, shape, opts, warm_start, con_idx,
                       cache: Optional[OperatorCache] = None,
                       with_cache: bool = False,
-                      clock: Optional[StageClock] = None):
+                      clock: Optional[StageClock] = None,
+                      static: bool = False):
     """The composed reduced solve of one replay step (the port of
     `fcc_qp_tpu.core.ds_engine._solve_ds_reduced_jit`): both stages with
     no phase timing. ``cache``: carried operator seeds, scales and
     polish classification; ``with_cache`` returns
-    ``(sol, warm, OperatorCache)``."""
+    ``(sol, warm, OperatorCache)``. ``static``: read-free, at most 128
+    instances (the module docstring)."""
     cache = cache if cache is not None else OperatorCache()
     if len(con_idx) == 0:
-        out = _solve_reduced_k0(qp, shape, opts)
+        out = _solve_reduced_k0(qp, shape, opts, static=static)
         return out + (OperatorCache(),) if with_cache else out
     prep = _prepare_reduced(
         qp, warm, shape, opts, warm_start, con_idx, clock=clock,
-        kkt_seed=cache.kkt_seed, scales=cache.scales,
+        kkt_seed=cache.kkt_seed, scales=cache.scales, static=static,
     )
     return _iterate_reduced(
         qp, prep, shape, opts, con_idx, clock=clock,
         polish_seed=cache.polish_seed, polish_cls=cache.polish_cls,
-        with_cache=with_cache,
+        with_cache=with_cache, static=static,
     )
 
 

@@ -7,25 +7,28 @@ solve t+1 is queued against the warm state that solve t leaves on the
 device, and the host waits only when it retires a result, ``depth``
 solves behind the submission front. Results retire in submission order.
 
-The transport, in CUDA terms (the JAX package packs for its tunnel
-instead):
+The solve is one device program, as the JAX server's jitted step is: a
+`core.graphs.CapturedSolve` (the engine's static, read-free B = 1 solve,
+captured as CUDA graphs at the first submit). A submit, in CUDA terms:
 
-* per submit, the seven QP fields go into one pinned host buffer and
-  cross to the device in one ``non_blocking`` copy on the current
-  stream; the solve reads them as views of that one device buffer;
-* per retire, the solution and every diagnostic were packed on the device
-  into one f64 vector when the solve was queued, copied to a pinned host
-  buffer in one ``non_blocking`` copy behind an event; retiring waits on
-  that event;
-* the warm state never leaves the device.
+* the seven QP fields go into one pinned host buffer and cross to the
+  graph's input buffer in one ``non_blocking`` copy on the current
+  stream;
+* the cold graph (first submit, or after `reset_warm_start`) or the
+  warm graph is replayed on the stream: it reads the warm state the
+  previous replay left in the graph's buffers and writes the new one;
+* the solution and every diagnostic, packed on the device into one f64
+  vector, are copied to a pinned host buffer of a ring of ``depth`` in
+  one ``non_blocking`` copy behind an event.
 
-Whether depth > 1 overlaps anything depends on the engine: a solve that
-reads the device in its loop (the chunk loops' convergence tests, the ds
-engine's polish) blocks the host there, and the next submit waits for it.
+So a submit reads nothing back and waits on nothing: with depth > 1 the
+host queues solve t+1 while the card still runs solve t, and retiring
+(waiting on the oldest event) is the only wait. On the CPU the same
+static solve runs eagerly inside the submit.
 
     server = FCCQPServer(shape, opts, depth=4)
     for qp in control_loop:
-        t = server.submit(**qp)        # one upload
+        t = server.submit(**qp)        # one upload, one replay
         done = server.poll()           # retired (ticket, FCCQPSolution)
     for t, sol in server.drain(): ...  # flush the tail
 
@@ -39,34 +42,22 @@ from __future__ import annotations
 import collections
 import time
 
-import numpy as np
 import torch
 
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
-from fcc_qp_tpu_torch.core.ds_engine import (
-    QPBatchDS,
-    _solve_ds_reduced,
-    constrained_indices,
-    resolve_device,
+from fcc_qp_tpu_torch.core.ds_engine import resolve_device
+from fcc_qp_tpu_torch.core.graphs import (
+    INT_STATS,
+    STATS,
+    CapturedSolve,
+    SolveBuffers,
+    classify,
+    engine_options,
+    host_fields,
+    layout,
+    pack_host,
 )
-from fcc_qp_tpu_torch.core.solver import _solve_core
-from fcc_qp_tpu_torch.types import FCCQPDetails, FCCQPSolution, QPBatch
-
-# the packed result: the n solution words, then these diagnostics
-_STATS = ("n_iter", "solve_status", "admm_residual_bounds",
-          "admm_residual_friction_cone", "bounds_viol", "friction_cone_viol",
-          "equality_viol", "n_iter_f32", "n_iter_ds", "polish_attempts",
-          "polish_accepted")
-_INT_STATS = ("n_iter", "solve_status", "n_iter_f32", "n_iter_ds",
-              "polish_attempts", "polish_accepted")
-
-
-def _layout(shape: ProblemShape):
-    """Field offsets of the packed QP: Q, b, A_eq, b_eq, friction_coeffs,
-    lb, ub."""
-    n, m, k = shape.num_vars, shape.num_eq, shape.n_cones
-    sizes = (n * n, n, m * n, m, k, n, n)
-    return tuple(int(o) for o in np.cumsum((0,) + sizes))
+from fcc_qp_tpu_torch.types import FCCQPDetails, FCCQPSolution
 
 
 class FCCQPServer:
@@ -82,7 +73,7 @@ class FCCQPServer:
       engine: ``"ds"`` (the batched reduced engine on a batch of one) or
         ``"f64"`` (the parity engine).
       device: where the solves run (default CUDA; raises when there is
-        no card).
+        no card). On CUDA every solve is a replay of the captured graphs.
     """
 
     def __init__(self, shape: ProblemShape,
@@ -96,79 +87,36 @@ class FCCQPServer:
         self.depth = int(depth)
         self.engine = engine
         self.device = resolve_device(device)
-        self._opts = (
-            opts.replace(scaling=True, splitting="constrained", polish=True,
-                         presolve="operator")
-            if engine == "ds" else opts
-        )
-        self._offs = _layout(shape)
+        self._opts = engine_options(opts, engine)
         self._cuda = self.device.type == "cuda"
-        self._warm = None
-        self._con_idx = None
+        # the captured solve, made at the first submit (the ds engine's
+        # classification comes from the first problem, as the JAX
+        # server's static con_idx does)
+        self._solve = None
+        self._warm = False
         self._next_ticket = 0
-        # in flight: (ticket, submit time, packed result on the host, its
-        # event, the pinned upload buffer kept alive until the copy ran)
+        # the packed results land in a ring of `depth` host buffers: a
+        # slot is written again only after its ticket has retired
+        n_out = shape.num_vars + len(STATS)
+        self._ring = [torch.empty((n_out,), dtype=torch.float64,
+                                  pin_memory=self._cuda)
+                      for _ in range(self.depth)]
+        # in flight: (ticket, submit time, its ring slot, its event, the
+        # pinned upload buffer kept alive until the copy ran)
         self._inflight: collections.deque = collections.deque()
         self._retired: dict[int, FCCQPSolution] = {}
 
     # -- dispatch ------------------------------------------------------
-    def _upload(self, fields):
-        """The seven fields in one host buffer (pinned on CUDA) and one
-        copy to the device; returns (device buffer, host buffer)."""
-        host = torch.empty((self._offs[-1],), dtype=torch.float64,
-                           pin_memory=self._cuda)
-        h = host.numpy()
-        for a, lo, hi in zip(fields, self._offs[:-1], self._offs[1:]):
-            if isinstance(a, torch.Tensor):
-                a = a.detach().cpu().numpy()
-            h[lo:hi] = np.asarray(a, np.float64).reshape(-1)
-        dev = host.to(self.device, non_blocking=True) if self._cuda else host
-        return dev, host
-
-    def _views(self, buf, batch_last: bool):
-        """The QP as views of the device buffer, a batch of one."""
-        s = self.shape
-        n, m, k = s.num_vars, s.num_eq, s.n_cones
-        dims = ((n, n), (n,), (m, n), (m,), (k,), (n,), (n,))
-        offs = self._offs
-        out = []
-        for i, d in enumerate(dims):
-            v = buf[offs[i]:offs[i + 1]]
-            out.append(v.view(*d, 1) if batch_last else v.view(1, *d))
-        return out
-
-    def _solve(self, buf):
-        warm_start = self._warm is not None
-        if self.engine == "ds":
-            qp = QPBatchDS(*self._views(buf, batch_last=True))
-            if self._con_idx is None:
-                # classified once, from the first problem (the stream's
-                # shape and bound pattern are fixed, as the reference's are)
-                self._con_idx = constrained_indices(
-                    qp, self.shape, full=self._opts.splitting == "full")
-            sol, warm = _solve_ds_reduced(
-                qp, self._warm, self.shape, self._opts, warm_start,
-                self._con_idx)
-        else:
-            qp = QPBatch(*self._views(buf, batch_last=False))
-            sol, warm = _solve_core(qp, self.shape, self._opts, self._warm,
-                                    warm_start)
-        # the warm handle chains on the device: no copy, no wait
-        self._warm = warm
-        d = sol.details
-        packed = torch.cat([
-            sol.z.reshape(-1).to(torch.float64),
-            torch.stack([getattr(d, k).reshape(-1)[0].to(torch.float64)
-                         for k in _STATS]),
-        ])
-        out = torch.empty(packed.shape, dtype=torch.float64,
-                          pin_memory=self._cuda)
-        out.copy_(packed, non_blocking=self._cuda)
-        event = None
-        if self._cuda:
-            event = torch.cuda.Event()
-            event.record()
-        return out, event
+    def _captured(self, host: torch.Tensor) -> CapturedSolve:
+        if self._solve is None:
+            # classified once, from the first problem (the stream's shape
+            # and bound pattern are fixed, as the reference's are)
+            con_idx = classify(self.shape, self.engine, host)
+            buffers = SolveBuffers(self.shape, self.engine, self.device,
+                                   self._opts.rho)
+            self._solve = CapturedSolve(self.shape, self._opts, self.engine,
+                                        buffers, con_idx)
+        return self._solve
 
     def submit(self, Q, b, A_eq, b_eq, friction_coeffs, lb, ub) -> int:
         """Queue one warm-chained solve; returns its ticket. Retires the
@@ -178,21 +126,36 @@ class FCCQPServer:
         ticket = self._next_ticket
         self._next_ticket += 1
         t_submit = time.perf_counter()
-        buf, host_in = self._upload((Q, b, A_eq, b_eq, friction_coeffs, lb,
-                                     ub))
-        out, event = self._solve(buf)
-        self._inflight.append((ticket, t_submit, out, event, host_in))
+        host = torch.empty((layout(self.shape)[-1],), dtype=torch.float64,
+                           pin_memory=self._cuda)
+        pack_host(self.shape, host_fields((Q, b, A_eq, b_eq,
+                                           friction_coeffs, lb, ub)), host)
+        solve = self._captured(host)
+        solve.buffers.inp.copy_(host, non_blocking=self._cuda)
+        # the warm state chains on the device: no copy, no wait
+        solve.run(warm_start=self._warm)
+        self._warm = True
+        out = self._ring[ticket % self.depth]
+        out.copy_(solve.buffers.out, non_blocking=self._cuda)
+        event = None
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record()
+        self._inflight.append((ticket, t_submit, out, event, host))
         return ticket
 
     # -- retire --------------------------------------------------------
     def _retire_oldest(self):
-        ticket, t_submit, out, event, _ = self._inflight.popleft()
-        if event is not None:
-            event.synchronize()
+        # the one wait of the pipeline; named for `torch.profiler`, so a
+        # trace shows every synchronization to lie inside a retire
+        with torch.profiler.record_function("FCCQPServer.retire"):
+            ticket, t_submit, out, event, _ = self._inflight.popleft()
+            if event is not None:
+                event.synchronize()
         v = out.numpy()
         n = self.shape.num_vars
-        stats = dict(zip(_STATS, v[n:].tolist()))
-        fields = {k: (int(x) if k in _INT_STATS else float(x))
+        stats = dict(zip(STATS, v[n:].tolist()))
+        fields = {k: (int(x) if k in INT_STATS else float(x))
                   for k, x in stats.items()}
         details = FCCQPDetails(
             solve_time=time.perf_counter() - t_submit,
@@ -229,4 +192,4 @@ class FCCQPServer:
 
     def reset_warm_start(self):
         """Drop the carried warm state: the next submit solves cold."""
-        self._warm = None
+        self._warm = False

@@ -9,14 +9,21 @@ presolve alone (``n_iter = 0``); otherwise the ADMM loop runs until the
 residuals fall below the tolerances or ``max_iter`` iterations are spent.
 
 The factorization builds the explicit KKT inverse blocks
-(`ops.kkt.admm_operator`); the loop runs in chunks of the CUDA kernel
+(`ops.kkt.admm_operator`); the loop is one launch of the CUDA kernel
 `ops.pallas_admm.admm_chunk_full_f64` (the full layout, unit weights,
-the increment gate over all rows with operator presolve), one launch per
-chunk of up to 64 iterations and one host read per chunk to stop when
-every instance has converged or run out of iterations. Instances that
-converge freeze where they stopped, so a batch gives each instance the
-result of its own serial solve. The JAX package runs the same loop as a
-vmapped `lax.while_loop`.
+the increment gate over all rows with operator presolve) for
+``max_iter`` iterations: each instance's warp stops where it converges
+or runs out of iterations, and frozen instances copy through, so a
+batch gives each instance the result of its own serial solve. The JAX
+package runs the same loop as a vmapped `lax.while_loop` over chunks;
+one launch equals that chunked loop bit for bit and is faster on the
+card (`exp_single_launch.py`).
+
+With ``static=True`` (`_solve_core`; the form `core.graphs` captures as
+a CUDA graph) the solve also reads nothing back outside the loop: the
+factorization's shift levels are all computed and selected on the
+device, and the equality-only presolve is computed whenever the shape
+allows it.
 
 Data is batch-LEADING `types.QPBatch` (`solve` takes one instance,
 `solve_batched` a batch); the loop's state is batch-last, as the kernel
@@ -73,18 +80,18 @@ def full_chunk(dtype):
     return admm_chunk_full_f32 if dtype == torch.float32 else admm_chunk_full_f64
 
 
-def _presolve(qp: QPBatch) -> torch.Tensor:
+def _presolve(qp: QPBatch, static: bool = False) -> torch.Tensor:
     """The equality-constrained QP's solution, (B, n): ``[[Q, A'],[A, 0]]
     s = [-b; b_eq]``."""
-    return kkt_solve(qp.Q, qp.A_eq, 0.0, -qp.b, qp.b_eq)
+    return kkt_solve(qp.Q, qp.A_eq, 0.0, -qp.b, qp.b_eq, static=static)
 
 
 def _admm(qp: QPBatch, x0, mu_x0, mu_lam0, skip, shape: ProblemShape,
           opts: FCCQPOptions, operator):
-    """The ADMM loop over a batch (B-leading in, B-leading out), in chunks
-    of the full-layout kernel, in the dtype of ``x0``. ``skip`` (B,) marks
-    instances that do not iterate. Returns ``(x, mu_x, mu_lam, n_iter,
-    xrn, lrn)``."""
+    """The ADMM loop over a batch (B-leading in, B-leading out): one
+    launch of the full-layout kernel for ``max_iter`` iterations, in the
+    dtype of ``x0``. ``skip`` (B,) marks instances that do not iterate.
+    Returns ``(x, mu_x, mu_lam, n_iter, xrn, lrn)``."""
     nc, ls = shape.nc, shape.lambda_c_start
     F, x_const = operator
     B = x0.shape[0]
@@ -109,13 +116,11 @@ def _admm(qp: QPBatch, x0, mu_x0, mu_lam0, skip, shape: ProblemShape,
              opts.eps_bound, opts.eps_fcone)
     chunk = full_chunk(dt)
     gate = GATE_ALL if opts.presolve == "operator" else GATE_OFF
-    K = min(opts.max_iter, 64)
     keys = ("x", "x_bar", "lam_bar", "mu_x", "mu_lam", "v", "done",
             "n_iter", "itv", "xrn", "lrn", "prim", "dual")
-    while not bool((st["done"] | (st["itv"] >= opts.max_iter)).all()):
-        out = chunk(*const, *(st[k] for k in keys), ls=ls, K=K,
-                    max_iter=opts.max_iter, gate=gate)
-        st = dict(zip(keys, out))
+    st = dict(zip(keys, chunk(*const, *(st[k] for k in keys), ls=ls,
+                              K=opts.max_iter, max_iter=opts.max_iter,
+                              gate=gate)))
     return (st["x"].T, st["mu_x"].T, st["mu_lam"].T, st["n_iter"],
             st["xrn"], st["lrn"])
 
@@ -146,9 +151,11 @@ def _details(x, qp: QPBatch, shape: ProblemShape, n_iter, xrn, lrn,
 
 
 def _solve_core(qp: QPBatch, shape: ProblemShape, opts: FCCQPOptions,
-                warm: Optional[WarmStart], warm_start: bool, operator=None):
+                warm: Optional[WarmStart], warm_start: bool, operator=None,
+                static: bool = False):
     """A solve of the batch ``qp`` (B-leading, f64 or f32, on its
-    device)."""
+    device). ``static``: read-free (see the module docstring), the
+    eager results bit for bit."""
     B = qp.b.shape[0]
     dev = qp.b.device
     nc = shape.nc
@@ -168,12 +175,14 @@ def _solve_core(qp: QPBatch, shape: ProblemShape, opts: FCCQPOptions,
         eq_c = torch.zeros((B,), dtype=torch.bool, device=dev)
     if warm_start:
         x_init = warm.x
-        if bool(eq_c.any()):
-            x_init = torch.where(eq_c[:, None], _presolve(qp), warm.x)
+        if nc == 0 and (static or bool(eq_c.any())):
+            x_init = torch.where(eq_c[:, None], _presolve(qp, static),
+                                 warm.x)
     else:
-        x_init = _presolve(qp)
+        x_init = _presolve(qp, static)
     if operator is None:
-        operator = admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, opts.rho)
+        operator = admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, opts.rho,
+                                 static=static)
     x, mu_x, mu_lam, n_iter, xrn, lrn = _admm(
         qp, x_init, mu_x0, mu_lam0, eq_c, shape, opts, operator)
     # skipped instances: the presolve, their incoming duals, no iteration

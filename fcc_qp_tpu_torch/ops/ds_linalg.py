@@ -14,12 +14,66 @@ JAX package's (``(n, m, B)`` matrices, ``(n, B)`` vectors). The dense
 KKT matrices and f32 seeds that only feed batched matmuls are kept
 batch-LEADING ``(B, N, N)``, which is what `torch.matmul` batches over
 (the JAX package moves them to batch-leading around each matmul too).
+
+``static=True`` makes the f64 Schur route read-free (the form a CUDA
+graph can hold): every shift level is factored and the extra refinement
+always runs, selected on the device; the results are the eager ones bit
+for bit. Index tensors built from host column lists are cached per
+device (`index_tensor`), so a solve that repeats a classification makes
+no host-to-device copy.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+# never evicted: a captured graph reads its index tensors by address, so
+# one freed and reallocated would corrupt every later replay. It grows by
+# one entry per distinct index list and device, a few per classification
+# (a list of at most n indices each).
+_INDEX_CACHE: dict = {}
+
+
+def index_tensor(idx, device) -> torch.Tensor:
+    """A long tensor of the host index list ``idx`` on ``device``, made
+    once per (indices, device) and cached: built outside a graph
+    capture, it is reused inside one without a host-to-device copy."""
+    key = (tuple(int(i) for i in idx), str(torch.device(device)))
+    t = _INDEX_CACHE.get(key)
+    if t is None:
+        t = torch.as_tensor(np.asarray(key[0], dtype=np.int64),
+                            device=device)
+        _INDEX_CACHE[key] = t
+    return t
+
+
+# the largest batch a static (read-free) solve takes: every capacity
+# gather of the reduced path, min(B, max(128, B // 8)) or min(B, 128),
+# covers the whole batch up to here, so each gathered loop has a bound
+# fixed by shapes and options
+STATIC_MAX_BATCH = 128
+
+
+def check_static_batch(B: int) -> None:
+    """Raise `ValueError` unless a static solve takes a batch of ``B``."""
+    if B > STATIC_MAX_BATCH:
+        raise ValueError(
+            f"a static (read-free) solve takes at most {STATIC_MAX_BATCH} "
+            f"instances, got {B}")
+
+
+def gathered_passes(static: bool, n: int, pending):
+    """The passes of a capacity-gathered loop: while ``pending()`` (a
+    bool tensor) has a set entry, read on the host; ``static``: ``n``
+    passes, each masked by ``pending()`` on the device, with no read
+    (``n`` covers the loop's bound when one gather takes the batch)."""
+    if static:
+        yield from range(n)
+        return
+    while bool(pending().any()):
+        yield None
 
 
 def matvec_ds(F: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -188,7 +242,7 @@ def refine_inverse_columns_ds(
     the correction) and the correction X32 @ R runs as one f32 matmul.
     X32 (B, N, N) f32, M (B, N, N) f64 -> C (B, N, k) f64.
     """
-    cols_t = torch.as_tensor(np.asarray(cols), device=M.device)
+    cols_t = index_tensor(cols, M.device)
     N = M.shape[-1]
     C = X32[:, :, cols_t].double()
     E = torch.eye(N, dtype=M.dtype, device=M.device)[:, cols_t]
@@ -243,12 +297,12 @@ def _jacobi_kkt_scales(H: torch.Tensor, A: torch.Tensor, sweeps: int = 3):
     return d, e
 
 
-def _chol_regularized(H: torch.Tensor):
+def _chol_regularized(H: torch.Tensor, static: bool = False):
     """Batched Cholesky with escalating relative diagonal shifts; the
     last level (2n) makes the shifted matrix diagonally dominant, so a
     factor always exists. Pivot-based detection: a factor whose squared
-    pivots fall below 1e-11 * scale counts as failed. Returns
-    ``(L, shifted)``."""
+    pivots fall below 1e-11 * scale counts as failed. ``static``: every
+    level is factored. Returns ``(L, shifted)``."""
     B, n, _ = H.shape
     scale = torch.clamp_min(H.abs().amax(dim=(-1, -2)), 1.0)
     eye = torch.eye(n, dtype=H.dtype, device=H.device)
@@ -267,7 +321,7 @@ def _chol_regularized(H: torch.Tensor):
     shifted = torch.zeros_like(ok)
     for delta in (1e-10, 1e-8, 1e-6, 1e-4, 1e-2, 2.0 * n):
         need = ~ok
-        if not bool(need.any()):
+        if not static and not bool(need.any()):
             break
         L2, ok2 = factor(torch.where(need, delta * scale, 0.0))
         L = torch.where(need[:, None, None], L2, L)
@@ -276,17 +330,19 @@ def _chol_regularized(H: torch.Tensor):
     return L, shifted
 
 
-def _kkt_inverse_core(H: torch.Tensor, A: torch.Tensor, refine_steps: int):
+def _kkt_inverse_core(H: torch.Tensor, A: torch.Tensor, refine_steps: int,
+                      static: bool = False):
     """Full inverse of [[H, A'],[A, 0]] (batch-leading, f64) by Schur
     factorization plus fixed-preconditioner refinement against the true
-    KKT; extra passes when a shift was needed."""
+    KKT; six extra passes on the whole batch when any instance needed a
+    shift (``static``: always run, and kept where a shift was needed)."""
     B, n, _ = H.shape
     m = A.shape[1]
-    L, sh_H = _chol_regularized(H)
+    L, sh_H = _chol_regularized(H, static)
     Hinv = torch.cholesky_inverse(L)
     W = Hinv @ A.transpose(1, 2)                     # (B, n, m)
     S = A @ W
-    Ls, sh_S = _chol_regularized(S)
+    Ls, sh_S = _chol_regularized(S, static)
     Sinv = torch.cholesky_inverse(Ls)
     T = Sinv @ W.transpose(1, 2)                     # (B, m, n)
     X = torch.cat(
@@ -299,15 +355,21 @@ def _kkt_inverse_core(H: torch.Tensor, A: torch.Tensor, refine_steps: int):
     M[:, :n, n:] = A.transpose(1, 2)
     M[:, n:, :n] = A
     eye = torch.eye(n + m, dtype=H.dtype, device=H.device)
-    steps = refine_steps + (6 if bool((sh_H | sh_S).any()) else 0)
     X0 = X
-    for _ in range(steps):
+    for _ in range(refine_steps):
         X = X + X0 @ (eye - M @ X)
+    shifted = (sh_H | sh_S).any()
+    if static or bool(shifted):
+        Xs = X
+        for _ in range(6):
+            Xs = Xs + X0 @ (eye - M @ Xs)
+        X = torch.where(shifted, Xs, X) if static else Xs
     return X
 
 
 def kkt_inverse_blocks_refined_ds(
-    Q: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, refine_steps: int = 1
+    Q: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, refine_steps: int = 1,
+    static: bool = False,
 ):
     """Inverse blocks (F, G) of [[Q + diag(rho), A'],[A, 0]]: F =
     M^{-1}[:n, :n], G = M^{-1}[:n, n:], batch-last like the inputs
@@ -322,7 +384,7 @@ def kkt_inverse_blocks_refined_ds(
     d, e = _jacobi_kkt_scales(Hb, Ab)
     Hs = d[:, :, None] * Hb * d[:, None, :]
     As = e[:, :, None] * Ab * d[:, None, :]
-    Xs = _kkt_inverse_core(Hs, As, refine_steps)
+    Xs = _kkt_inverse_core(Hs, As, refine_steps, static)
     p = torch.cat([d, e], dim=1)
     X = p[:, :, None] * Xs * p[:, None, :]
     F = X[:, :n, :n].permute(1, 2, 0)
@@ -332,7 +394,8 @@ def kkt_inverse_blocks_refined_ds(
 
 def kkt_solve_refined_ds(Q: torch.Tensor, A: torch.Tensor, r: torch.Tensor,
                          s: torch.Tensor, delta_rel: float = 1e-6,
-                         refine_steps: int = 8) -> torch.Tensor:
+                         refine_steps: int = 8,
+                         static: bool = False) -> torch.Tensor:
     """Accurate f64 solve of the UNREGULARIZED KKT system for x,
 
         [[Q, A'],[A, 0]] [x; y] = [r; s]
@@ -356,10 +419,11 @@ def kkt_solve_refined_ds(Q: torch.Tensor, A: torch.Tensor, r: torch.Tensor,
 
     scale = torch.clamp_min(Qs.abs().amax(dim=(-1, -2)), 1.0)
     eye = torch.eye(n, dtype=Q.dtype, device=Q.device)
-    L, _ = _chol_regularized(Qs + (delta_rel * scale)[:, None, None] * eye)
+    L, _ = _chol_regularized(Qs + (delta_rel * scale)[:, None, None] * eye,
+                             static)
     At = As.transpose(1, 2)
     W = torch.cholesky_solve(At, L)                  # (B, n, m)
-    Ls, _ = _chol_regularized(As @ W)
+    Ls, _ = _chol_regularized(As @ W, static)
 
     def solve_delta(rv, sv):
         u = torch.cholesky_solve(rv, L)

@@ -24,6 +24,10 @@ All functions are batch-LEADING f64 (``(B, n, n)``, ``(B, n)``): the JAX
 package writes them for one instance and vmaps them. `torch.linalg.
 cholesky_ex` and `torch.cholesky_solve` are library factorizations, as
 the JAX package leaves them to XLA.
+
+``static=True`` makes a function read-free (the form a CUDA graph can
+hold): every shift level is factored and the refinement always runs,
+each selected on the device; the results are the eager ones bit for bit.
 """
 
 from __future__ import annotations
@@ -36,8 +40,11 @@ def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def _rho_col(rho, like: torch.Tensor) -> torch.Tensor:
-    """rho as a (B, 1, 1) tensor (a scalar or (B,) per instance)."""
-    r = torch.as_tensor(rho, dtype=like.dtype, device=like.device)
+    """rho as a (B, 1, 1) tensor (a scalar or (B,) per instance); a
+    Python scalar is filled on the device, not copied from the host."""
+    if not isinstance(rho, torch.Tensor):
+        return torch.full((), rho, dtype=like.dtype, device=like.device)
+    r = rho.to(like.device, like.dtype)
     return r.reshape(-1, 1, 1) if r.dim() else r
 
 
@@ -52,7 +59,8 @@ def assemble_kkt(Q: torch.Tensor, A_eq: torch.Tensor, rho) -> torch.Tensor:
     return M
 
 
-def _chol_or_regularized(M: torch.Tensor, return_shifted: bool = False):
+def _chol_or_regularized(M: torch.Tensor, return_shifted: bool = False,
+                         static: bool = False):
     """Cholesky factor of each M, escalating Tikhonov shifts
     ``eps * {0, 1e2, 1e5, 1e8} * max(max|M|, 1)`` until it exists.
 
@@ -62,7 +70,8 @@ def _chol_or_regularized(M: torch.Tensor, return_shifted: bool = False):
     positive one would pass as a finite factor of infinite condition.
     Instances that fail at every shift get zeros. With
     ``return_shifted`` also returns the per-instance flag that a shift
-    was taken (or all failed)."""
+    was taken (or all failed). ``static``: every shift level is factored
+    (no host read ends the escalation)."""
     B, n, _ = M.shape
     eps = torch.finfo(M.dtype).eps
     scale = torch.clamp_min(M.abs().amax(dim=(-1, -2)), 1.0)
@@ -81,7 +90,7 @@ def _chol_or_regularized(M: torch.Tensor, return_shifted: bool = False):
     attempts = torch.zeros((B,), dtype=torch.int32, device=M.device)
     for mult in (0.0, 1e2, 1e5, 1e8):
         need = ~ok
-        if not bool(need.any()):
+        if not static and not bool(need.any()):
             break
         Lk, okk = factor(scale * eps * mult)
         L = torch.where(need[:, None, None], Lk, L)
@@ -98,27 +107,28 @@ def _cho_solve(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(R, L, upper=False)
 
 
-def kkt_factor_blocks(Q: torch.Tensor, A_eq: torch.Tensor, rho):
+def kkt_factor_blocks(Q: torch.Tensor, A_eq: torch.Tensor, rho,
+                      static: bool = False):
     """Schur-complement factorization of the KKT matrix: the explicit
     inverse blocks ``F = M^{-1}[:n, :n]`` (B, n, n) and ``G =
     M^{-1}[:n, n:]`` (B, n, m). Instances whose factors took a shift are
     refined by four fixed-preconditioner Richardson steps against the
     true KKT (the shift's null-space error stays in the dual-dual block,
-    which F and G never read)."""
+    which F and G never read; ``static``: the refinement always runs)."""
     B, n, _ = Q.shape
     m = A_eq.shape[-2]
     H = Q + _rho_col(rho, Q) * _eye(n, Q)
-    L_H, sh_H = _chol_or_regularized(H, return_shifted=True)
+    L_H, sh_H = _chol_or_regularized(H, return_shifted=True, static=static)
     Hinv = _cho_solve(L_H, _eye(n, Q).expand(B, n, n))
     At = A_eq.transpose(-1, -2)
     W = _cho_solve(L_H, At)
     S = A_eq @ W
-    L_S, sh_S = _chol_or_regularized(S, return_shifted=True)
+    L_S, sh_S = _chol_or_regularized(S, return_shifted=True, static=static)
     T = _cho_solve(L_S, W.transpose(-1, -2))          # (B, m, n)
     F = Hinv - W @ T
     G = T.transpose(-1, -2)
     sh = sh_H | sh_S
-    if bool(sh.any()):
+    if static or bool(sh.any()):
         Sinv = _cho_solve(L_S, _eye(m, Q).expand(B, m, m))
         X0 = torch.cat([torch.cat([F, G], dim=-1),
                         torch.cat([T, -Sinv], dim=-1)], dim=-2)
@@ -130,23 +140,26 @@ def kkt_factor_blocks(Q: torch.Tensor, A_eq: torch.Tensor, rho):
         sel = sh[:, None, None]
         F = torch.where(sel, X[:, :n, :n], F)
         G = torch.where(sel, X[:, :n, n:], G)
-    return F, G
+    # row-major whichever block was taken (the library factorization
+    # leaves F column-major, a selection row-major), so that the products
+    # reading F and G round alike on every path, a static solve's included
+    return F.contiguous(), G.contiguous()
 
 
 def kkt_solve(Q: torch.Tensor, A_eq: torch.Tensor, rho, r: torch.Tensor,
-              s: torch.Tensor) -> torch.Tensor:
+              s: torch.Tensor, static: bool = False) -> torch.Tensor:
     """Solve ``[[Q + rho*I, A'],[A, 0]] [x; y] = [r; s]`` for x (B, n):
     the single right-hand-side Schur solve of the presolve. Instances
     whose factors took a shift get four vector refinement steps against
-    the true KKT."""
+    the true KKT (``static``: computed always, selected per instance)."""
     n = Q.shape[-1]
     H = Q + _rho_col(rho, Q) * _eye(n, Q)
-    L_H, sh_H = _chol_or_regularized(H, return_shifted=True)
+    L_H, sh_H = _chol_or_regularized(H, return_shifted=True, static=static)
     mv = lambda M_, v_: (M_ @ v_[..., None])[..., 0]
     At = A_eq.transpose(-1, -2)
     W = _cho_solve(L_H, At)
     S = A_eq @ W
-    L_S, sh_S = _chol_or_regularized(S, return_shifted=True)
+    L_S, sh_S = _chol_or_regularized(S, return_shifted=True, static=static)
 
     def solve_once(rv, sv):
         u = _cho_solve(L_H, rv[..., None])[..., 0]
@@ -155,7 +168,7 @@ def kkt_solve(Q: torch.Tensor, A_eq: torch.Tensor, rho, r: torch.Tensor,
 
     x, y = solve_once(r, s)
     sh = sh_H | sh_S
-    if bool(sh.any()):
+    if static or bool(sh.any()):
         xv, yv = x, y
         for _ in range(4):
             rr = r - (mv(H, xv) + mv(At, yv))
@@ -167,11 +180,11 @@ def kkt_solve(Q: torch.Tensor, A_eq: torch.Tensor, rho, r: torch.Tensor,
 
 
 def admm_operator(Q: torch.Tensor, b: torch.Tensor, A_eq: torch.Tensor,
-                  b_eq: torch.Tensor, rho):
+                  b_eq: torch.Tensor, rho, static: bool = False):
     """The per-solve ADMM primal-update operator ``(F, x_const)`` (B, n,
     n) / (B, n): every iteration's primal update is ``x = x_const + rho F
     v`` with v = slack - dual, because the KKT right-hand side is ``[-b +
     rho v; b_eq]`` and only its first block changes."""
-    F, G = kkt_factor_blocks(Q, A_eq, rho)
+    F, G = kkt_factor_blocks(Q, A_eq, rho, static=static)
     mv = lambda M_, v_: (M_ @ v_[..., None])[..., 0]
     return F, -mv(F, b) + mv(G, b_eq)

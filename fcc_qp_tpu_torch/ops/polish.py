@@ -20,6 +20,11 @@ Layouts follow the JAX package: problem data, state and masks are
 batch-LAST; the f32 seeds ``(B, N2, N2)`` are batch-leading. The
 capacity gathers of the continuation (``argsort(-mask, stable=True)[:C]``)
 stay on the device.
+
+``static=True`` (batches of at most 128, where one gather's capacity
+covers the batch) reads nothing back: the seed rebuild is one masked
+pass, and the continuation runs its ``newton_steps - 1`` passes masked
+per instance; the results are the eager ones bit for bit.
 """
 
 from __future__ import annotations
@@ -29,7 +34,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from fcc_qp_tpu_torch.ops.ds_linalg import matvec_ds, transpose_ds
+from fcc_qp_tpu_torch.ops.ds_linalg import (
+    check_static_batch,
+    gathered_passes,
+    index_tensor,
+    matvec_ds,
+    transpose_ds,
+)
 from fcc_qp_tpu_torch.ops.projections import project_cone_ds, sqrt_rn
 
 
@@ -142,7 +153,7 @@ def _curvature_augmented_q(Q, eta, lam3, surf, ls: int):
     pxx = c * (1.0 - gx * gx)
     pyy = c * (1.0 - gy * gy)
     pxy = -c * gx * gy
-    ix = torch.as_tensor(ls + np.arange(ncones) * 3, device=Q.device)
+    ix = index_tensor(ls + np.arange(ncones) * 3, Q.device)
     iy = ix + 1
     Qa = Q.clone()
     Qa[ix, ix] += pxx.double()
@@ -218,26 +229,28 @@ def _ns_refresh_guarded(X, Mb, steps: int):
     return X_best, r_best
 
 
-def _seed_refresh_or_rebuild(seed, Mb, steps: int, clock=None):
+def _seed_refresh_or_rebuild(seed, Mb, steps: int, clock=None,
+                             static: bool = False):
     """Refresh a carried seed; instances whose refresh does not contract
     (residual > 0.3) get a cold rebuild, capacity-gathered
     (``max(128, B // 8)`` per pass) and looping until every one is
-    rebuilt. ``clock`` (`utils.timing.StageClock`) counts the rebuilt
-    instances (``n_polish_rebuild``)."""
+    rebuilt (``static``: one pass, which covers a batch of up to 128).
+    ``clock`` (`utils.timing.StageClock`) counts the rebuilt instances
+    (``n_polish_rebuild``)."""
     B = Mb.shape[0]
     X, r = _ns_refresh_guarded(seed, Mb, steps)
     rem = r > 0.3
     if clock is not None:
         clock.count("n_polish_rebuild", rem)
     C = min(B, max(128, B // 8))
-    if bool(rem.any()):
+    if static or bool(rem.any()):
         X = X.clone()
-    while bool(rem.any()):
+    for _ in gathered_passes(static, 1, lambda: rem):
         idx = torch.argsort(-rem.float(), stable=True)[:C]
         Xc = _polish_seed_f32(Mb[idx])
         keep = rem[idx][:, None, None]
         X[idx] = torch.where(keep, Xc, X[idx])
-        rem[idx] = False
+        rem.index_fill_(0, idx, False)
     return X
 
 
@@ -305,6 +318,7 @@ def polish_reduced(
     seed: Optional[torch.Tensor] = None,
     init_class: Optional[torch.Tensor] = None,
     clock=None,
+    static: bool = False,
 ) -> PolishResult:
     """Attempt an active-set polish of every instance in the batch.
 
@@ -315,6 +329,7 @@ def polish_reduced(
     ``init_class``: packed classification to use for the first assembly
     instead of a fresh inflated read (must accompany a carried seed).
     ``clock``: a `utils.timing.StageClock` that counts the seed rebuilds.
+    ``static``: read-free, for a batch of at most `STATIC_MAX_BATCH`.
     """
     nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
     m = qps.A_eq.shape[0]
@@ -324,8 +339,11 @@ def polish_reduced(
     ncones = nc // 3 if nc else 0
     mu_eff = qps.friction_coeffs
     ci = np.asarray(ci)
-    ci_t = torch.as_tensor(ci, device=dev)
+    ci_t = index_tensor(ci, dev)
     ci_box = ci_t[:kb]
+    C2 = min(B, max(128, B // 8))
+    if static:
+        check_static_batch(B)
 
     t0 = s + mu_dual
     if init_class is None:
@@ -354,7 +372,8 @@ def polish_reduced(
             vb = torch.where(low, c.lbc, torch.where(up, c.ubc, zero))
             pv[ci_box] = torch.where(act, vb, zero)
         if nc:
-            pin[ls:ls + nc] += torch.repeat_interleave(apex.float(), 3, dim=0)
+            pin[ls:ls + nc] += apex.float()[:, None, :].expand(
+                ncones, 3, Bc).reshape(nc, Bc)
         return pin, pv
 
     def reconstruct_duals(c: _PCtx, x, y, raw, low, up, surf, apex):
@@ -494,7 +513,7 @@ def polish_reduced(
         )
         Mb = _assemble_m2_masked(Q_aug.float(), pin, A2.float(), Dtail)
         X = (_polish_seed_f32(Mb) if X is None
-             else _seed_refresh_or_rebuild(X, Mb, 2, clock))
+             else _seed_refresh_or_rebuild(X, Mb, 2, clock, static))
         x, y, raw = _solve_structured_masked(X, Q_aug, pin, A2, A2t, Dtail, r1, r2)
         mu_new = reconstruct_duals(c, x, y, raw, low, up, surf, apex)
         s_new, x_res, lam_res, _, score = accept_eval(c, x, mu_new)
@@ -515,7 +534,6 @@ def polish_reduced(
         changed = changed_per_instance(
             ctx, low, up, surf, apex, lam_lin, nlow, nup, nsurf, napex, nlam
         ) & (score > 1.0)
-        C2 = min(B, max(128, B // 8))
         steps = torch.ones((B,), dtype=torch.int32, device=dev)
 
         # commit the post-solve-1 re-classification for still-changing
@@ -532,8 +550,9 @@ def polish_reduced(
         seed_cls = used_cls
 
         # step 2 runs FULL-batch when the pool exceeds the gather capacity
+        # (never when one gather covers the batch, as a static solve's does)
         rem = changed & (steps < newton_steps)
-        if int(rem.sum()) > C2:
+        if not static and int(rem.sum()) > C2:
             X32, fx, fy, fmu, f_snew, f_xr, f_lr, f_score = pdas_step(
                 ctx, low, up, surf, apex, lam_lin, eta, X32
             )
@@ -569,10 +588,9 @@ def polish_reduced(
             changed = torch.where(rem, changed_n, changed)
 
         # steps 3+ on capacity-gathered sub-batches of the pool
-        while True:
-            rem = changed & (steps < newton_steps)
-            if not bool(rem.any()):
-                break
+        pending = lambda: changed & (steps < newton_steps)
+        for _ in gathered_passes(static, newton_steps - 1, pending):
+            rem = pending()
             idx = torch.argsort(-rem.float(), stable=True)[:C2]
             sel = rem[idx]
             c = _gather_ctx(ctx, idx)
