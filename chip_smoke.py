@@ -15,12 +15,20 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    limit.
 2. Main path: a cold batched Cassie solve, B=8192
    (`generate_osc_batch(CASSIE, 8192, seed=0)` -> `to_ds_batch` ->
-   `solve_batched_ds`) at the bench flags (polish on, 4 rounds), run
-   once to warm up, three times timed (kernel launches counted over the
-   first; solves/s from the median) and once with per-stage times
-   (a synchronize per stage). Checks: no
-   kFactorizationFailed, kSuccess >= 99%, residuals <= 1e-6 and
-   equality residuals <= 1e-8 on every kSuccess instance.
+   `solve_batched_ds`) at the bench flags (polish on, 4 rounds). The
+   first call captures it (`core.graphs.CapturedBatch`; kernel launches
+   counted over it, as the graphs are captured) and three timed calls
+   replay it (solves/s from the median); printed: the capture's warm-up,
+   capture and instantiate seconds, each graph's nodes by type (IF
+   bodies included, IF nodes counted), the peak memory allocated, and
+   beside the replays the eager (reading) path's median in the same
+   call. Then one uncaptured solve with per-stage times (a synchronize
+   per stage; it counts the hybrid fallback's calls). Checks: a later
+   replay equals the first, and the replays equal the uncaptured static
+   solve under cuSOLVER bit for bit and the eager solve by status with
+   |dz| <= 1e-9; no static gathered loop ends with work pending (the
+   exhausted flag); no kFactorizationFailed, kSuccess >= 99%, residuals
+   <= 1e-6 and equality residuals <= 1e-8 on every kSuccess instance.
 3. Endgame path: the same batch with polish off and phase1_tol=1e-2
    (the two-phase path), which sends every instance through the f64
    endgame kernel. Checks: no kFactorizationFailed, kSuccess >= 90%,
@@ -38,17 +46,27 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
 5. Warm replay, the JAX bench's headline: `replay_ds_streams` over the
    bench's walking log (`generate_osc_sequence(CASSIE, 65536, seed=0,
    smoothness=0.002)`) in 4096 streams x 16 steps at the bench flags,
-   run once to warm up, three times timed (kernel launches counted over
-   the first; solves/s from the median), once with stage times summed
-   over the warm steps (step 0 apart) and once recorded. Checks: no
-   kFactorizationFailed, kSuccess >= 99.9%, residuals <= 1e-6 and the
-   equality bars of phase 2 on kSuccess, warm polish acceptance >= 99%,
-   warm n_iter p50 <= 15, a finite (65536, 60) solution, both kernels
-   launched, and the step-0 rows equal to a cold `solve_batched_ds` of
-   the same 4096 instances (status, n_iter, polish acceptance exactly,
-   z to 1e-12). Each kernel is then held against its plain version on
-   its last chunk of a warm step (``*_warm`` keys; the f64 kernel only
-   where a warm step launched it).
+   captured: the first replay captures the cold (step 0) and warm graphs
+   (kernel launches counted over it), three timed replays (solves/s from
+   the median) beside three of the eager (reading) replay in the same
+   call, one uncaptured replay with stage times summed over the warm
+   steps (step 0 apart) and one recorded. Printed as in phase 2 per
+   capture. Checks: the graph replays equal the uncaptured static
+   replay under cuSOLVER bit for bit over its first
+   `STATIC_REPLAY_STEPS` steps, and the eager replay by status with
+   |dz| <= 1e-9; the exhausted flag clear; no kFactorizationFailed,
+   kSuccess >= 99.9%, residuals <= 1e-6 and the equality bars of phase 2
+   on kSuccess, warm polish acceptance >= 99%, warm n_iter p50 <= 15, a
+   finite (65536, 60) solution, both kernels launched, and the step-0
+   rows equal to a cold `solve_batched_ds` of the same 4096 instances
+   (status, n_iter, polish acceptance exactly, z to 1e-12); a profiled
+   captured replay with no host read and both reduced kernels in its
+   trace, and its warm steps profiled alone: no host read, the device's
+   busy time and idle share per step (profiled, and against the same
+   window's unprofiled wall). Each kernel is then held against its
+   plain version on its last chunk of a warm step of an uncaptured
+   replay (``*_warm`` keys; the f64 kernel only where a warm step
+   launched it).
 6. The reference-semantics path: the full-splitting engine (the package
    defaults' path) on the same Cassie batch, B=8192, at `FULL_OPTS`
    (exact presolve, adaptive rho), run once to warm up, three times
@@ -136,11 +154,16 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    depth, beside the eager solves' results/s. Then at every depth a
    submit loop after the capturing first submit under `torch.profiler`:
    no host read (``aten::_local_scalar_dense``) and no synchronization
-   outside a retire (``FCCQPServer.retire`` ranges), each replay's
-   kernels naming the hand kernels of its engine, and per solve the
+   outside a retire (``FCCQPServer.retire`` ranges), the traces of the
+   depths together naming each hand kernel of its engine that the
+   profiled solves ran (an f32 iteration, an f64 one; a skipped IF body
+   launches nothing, and the trace of a graph with IF nodes names fewer
+   of its kernels than run), and per solve the
    graph launches and the kernel launches the trace shows (a lower
-   bound: a trace can lose kernel records); a replay's device time from
-   CUDA events over 20 back-to-back replays.
+   bound: a trace can lose kernel records, and an IF body that is
+   skipped launches none of its kernels); a replay's device time from
+   CUDA events over 20 back-to-back replays. Since the IF nodes, the
+   census's kernel nodes are those a replay may run, not those it runs.
 16. The sharded solves (`parallel`) over [cuda:0] and over two shards on
    the one card at B = 8192 and 8191, both engines at `SHARD_OPTS`: equal
    to the unsharded solve (n_iter, statuses, |dz| <= 1e-8 ds / 1e-10
@@ -152,10 +175,15 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    under ``*_warm``, the drop-in chunk's under ``*_b1``, alpha = 1.6's
    under ``*_alpha``; ``ms_idle`` is a launch on the straggler inputs
    with every instance done; ``launches`` sums every path's count, and
-   ``launches_<path>`` splits it: on the captured paths, drop-in and
-   serving, a wrapper counts at the warm-up and the capture, and
+   ``launches_<path>`` splits it: on the captured paths (the bench
+   solve, the replay, drop-in and serving, alpha and adaptive rho) a
+   wrapper counts at the warm-up and the capture, and
    ``launches_per_replay`` (``_cold``) gives its launches in one replay
-   of each engine's warm (cold) graphs, from the capture census), the
+   of each engine's warm (cold) B = 1 graphs, from the capture census,
+   ``launches_per_cold_graph`` in one replay of the B = 8192 bench
+   graphs, ``launches_per_replay_step0`` / ``launches_per_warm_step``
+   in one replay of the replay's cold / warm graphs, each counted under
+   capture: an IF body's kernels count whether or not it runs), the
    `nvidia-smi` line, and the final JSON status line.
 
 Also printed: the bench solve's host seconds per chunk (the approach and
@@ -173,8 +201,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 8192
-# the JAX bench's replay: a walking log of T steps in S streams
+# the JAX bench's replay: a walking log of T steps in S streams; the
+# captured replay is held bit for bit against the uncaptured static one
+# over its first STATIC_REPLAY_STEPS steps
 REPLAY_T, REPLAY_S = 65536, 4096
+STATIC_REPLAY_STEPS = 16
 # NVIDIA H100 SXM data sheet: HBM3 rate, FP64 and FP32 vector peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f64": 34e12, "f32": 67e12}
@@ -412,70 +443,101 @@ def _union(spans):
     return out
 
 
-def profile_warm_steps(replay):
-    """One replay under `torch.profiler`; from the ranges the replay names
-    per warm step (``replay_warm_step``), the warm steps' wall, device
-    busy time (the union of the intervals of the kernels they launch),
-    kernel launches and host reads (device-to-host scalar reads), per
-    step, and the kernels with the most device time in them."""
-    import bisect
-
+def profile_captured_replay(replay, cap, log_sm):
+    """Two windows under `torch.profiler`. (1) One captured replay: its
+    host reads (``aten::_local_scalar_dense``) and the kernels of each
+    hand-written instantiation in its trace. (2) After an untimed cold
+    step 0, the warm steps alone: each later step's slice loaded and the
+    warm graphs replayed, as the replay does, after which the card is
+    synchronized; per warm step the window's wall, the device's busy
+    time (the union of the kernels' intervals), its idle share, the
+    kernels, the host reads, and the kernels with the most device time.
+    The tracer's cost per kernel record stretches the profiled window
+    (its gaps and its kernels), so the same window also runs unprofiled
+    first: its wall, the span of the stream's work between CUDA events
+    recorded around the steps, and the host's seconds to issue them (an
+    issue time far below the span says the host does not hold the card
+    back)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    cuda = torch.autograd.DeviceType.CUDA
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         replay()
         torch.cuda.synchronize()
-    events = prof.events()
-    cuda = torch.autograd.DeviceType.CUDA
-    ranges = ("replay_step0", "replay_warm_step")
-    # the step ranges also appear on the device timeline; they are no work
-    kernels = [e for e in events
-               if e.device_type == cuda and e.name not in ranges]
-    cpu = [e for e in events if e.device_type != cuda]
-    warm = sorted((e.time_range.start, e.time_range.end) for e in cpu
-                  if e.name == "replay_warm_step")
-    starts = [s for s, _ in warm]
+    ev = prof.events()
+    names = [e.name for e in ev if e.device_type == cuda]
+    out = dict(
+        replay_host_reads=sum(e.name == "aten::_local_scalar_dense"
+                              for e in ev if e.device_type != cuda),
+        replay_hand_kernels={inst: sum(inst in n for n in names)
+                             for inst in GRAPH_KERNELS["ds"]})
+    steps = log_sm.b.shape[0]
 
-    def step_of(e):
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        return i if i >= 0 and e.time_range.start < warm[i][1] else None
+    def warm_steps():
+        # the chain from step 0 (not timed), as in a replay; the wall, and
+        # the span of the stream's work from CUDA events around the steps
+        cap.load(type(log_sm)(*(a[0] for a in log_sm)))
+        cap.run(False)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        for t in range(1, steps):
+            with torch.profiler.record_function("replay_warm_step"):
+                cap.load(type(log_sm)(*(a[t] for a in log_sm)))
+                cap.run(True)
+        ev[1].record()
+        issued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, ev[0].elapsed_time(ev[1]) * 1e-3,
+                issued)
 
-    # kernels launched in a warm step (a kernel may still run after its
-    # step's host range ends; the next step's first host read waits)
-    w_kernels = [e for e in kernels if step_of(e) is not None]
-    busy_us = sum(e - s for s, e in _union(
-        (e.time_range.start, e.time_range.end) for e in w_kernels))
-    reads = [e for e in cpu if e.name == "aten::_local_scalar_dense"
-             and step_of(e) is not None]
-    wall_us = sum(e - s for s, e in warm)
+    quiet, quiet_span, quiet_issue = warm_steps()
+    with profile(activities=acts) as prof:
+        wall, _, _ = warm_steps()
+    ev = prof.events()
+    kernels = [e for e in ev if e.device_type == cuda
+               and e.name != "replay_warm_step"]
+    busy_us = sum(e - s_ for s_, e in _union(
+        (e.time_range.start, e.time_range.end) for e in kernels))
     by_name: dict = {}
-    for e in w_kernels:
+    for e in kernels:
         d = by_name.setdefault(e.name, [0.0, 0])
         d[0] += (e.time_range.end - e.time_range.start) * 1e-3
         d[1] += 1
-    n = max(len(warm), 1)
-    return dict(
-        steps=len(warm), wall_s=wall_us * 1e-6 / n,
-        busy_s=busy_us * 1e-6 / n, idle_share=1.0 - busy_us / wall_us,
-        launches=len(w_kernels) / n, host_reads=len(reads) / n,
+    n = steps - 1
+    out.update(
+        steps=n, wall_s=wall / n, busy_s=busy_us * 1e-6 / n,
+        idle_share=1.0 - busy_us * 1e-6 / wall,
+        unprofiled_wall_s=quiet / n, unprofiled_span_s=quiet_span / n,
+        unprofiled_issue_s=quiet_issue / n,
+        launches=len(kernels) / n,
+        host_reads=sum(e.name == "aten::_local_scalar_dense"
+                       for e in ev if e.device_type != cuda) / n,
+        graph_launches=sum(e.name == "cudaGraphLaunch" for e in ev) / n,
         top=[dict(name=k[:80], ms_per_step=v[0] / n, launches=v[1] / n)
-             for k, v in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]],
-    )
+             for k, v in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:8]])
+    return out
 
 
 def replay_phase(engine, bench):
-    """Phase 5: the warm replay at the bench's shape, its checks and its
-    numbers. Returns the launches of one replay per kernel and the
-    recorders of a recorded replay."""
+    """Phase 5: the warm replay at the bench's shape, captured, its checks
+    and its numbers. Returns the launches of the capturing replay per
+    kernel (a wrapper counts while the graphs are captured), the
+    recorders of a recorded (uncaptured) replay, the log, the final warm
+    state, and the captures' report."""
     import numpy as np
     import torch
 
     from fcc_qp_tpu_torch import replay_ds_streams, solve_batched_ds
     from fcc_qp_tpu_torch import to_ds_batch
+    from fcc_qp_tpu_torch.core.graphs import (CapturedBatch, _copy,
+                                              captured_batch)
     from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_sequence
-    from fcc_qp_tpu_torch.ops import pallas_admm
+    from fcc_qp_tpu_torch.ops import device_branch, pallas_admm
     from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
 
     S, steps = REPLAY_S, REPLAY_T // REPLAY_S
@@ -488,32 +550,76 @@ def replay_phase(engine, bench):
         f"{time.perf_counter() - t0:.2f} s")
     replay = lambda **kw: replay_ds_streams(qp, CASSIE.shape, bench,
                                             n_streams=S, **kw)
+    ci_log = engine.constrained_indices(qp, CASSIE.shape)
+    flag = device_branch.exhausted_flag("cuda")
+    flag.fill_(False)
+
+    # the capturing replay, counted from zero
+    pallas_admm.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     replay()
     torch.cuda.synchronize()
-    log(f"[replay] warm-up replay {time.perf_counter() - t0:.3f} s")
+    first_call = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    cap = captured_batch(CASSIE.shape, bench, ci_log, S, "cuda",
+                         with_cache=True)
+    check(sorted(cap._captured) == [False, True],
+          "replay: the cold and warm steps were not both captured")
+    report = {("cold" if not w else "warm"): capture_report(cap, w)
+              for w in (False, True)}
 
-    # three timed replays; launches are counted over the first
-    pallas_admm.reset_launch_counts()
-    walls, sols = [], None
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, ws = replay()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        if sols is None:
-            sols, final_warm = out, ws
-            launches = {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
+    # three timed replays
+    walls, (sols, final_warm) = timed_walls(replay)
     wall = sorted(walls)[1]
+    check(not bool(flag), "replay: a static gathered loop ended with work "
+          "pending (its bound is too small)")
+    # the eager (reading) replay in the same call, and a staged one
+    eager_walls, (eager, _) = timed_walls(lambda: replay(graphs=False))
+    eager_wall = sorted(eager_walls)[1]
     stages = {}
     replay(stage_times=stages)
-    log("[replay] timed walls (s): " + json.dumps(walls))
-    log(f"[replay] T={REPLAY_T} ({S} streams x {steps} steps): median "
-        f"{wall:.6f} s -> {REPLAY_T / wall:.1f} solves/s; solve_time "
-        f"{float(sols.details.solve_time[0]):.6f} s per step, "
-        f"factorization_time {float(sols.details.factorization_time[0]):.6f}"
-        f" s")
+    log("[replay] timed walls (s): " + json.dumps(walls) + "; eager "
+        "(uncaptured) replay walls, same call: " + json.dumps(eager_walls))
+    log(f"[replay] T={REPLAY_T} ({S} streams x {steps} steps), captured: "
+        f"median {wall:.6f} s -> {REPLAY_T / wall:.1f} solves/s (eager "
+        f"{eager_wall:.6f} s -> {REPLAY_T / eager_wall:.1f}); the "
+        f"capturing replay {first_call:.3f} s, peak {peak_gb:.3f} GB "
+        f"allocated; solve_time {float(sols.details.solve_time[0]):.6f} s "
+        f"per step, factorization_time (step 0's operator graph) "
+        f"{float(sols.details.factorization_time[0]):.6f} s")
+    log("[replay:graphs] captures (cold = step 0, warm = each later step): "
+        + json.dumps(report))
+
+    # the uncaptured static replay under cuSOLVER, step by step: the
+    # graph replays equal it bit for bit
+    static = CapturedBatch(CASSIE.shape, bench, ci_log, S, "cuda",
+                           with_cache=True, graphs=False)
+    log_sm = type(qp)(*(a.reshape(*a.shape[:-1], S, steps).movedim(-1, 0)
+                        for a in qp))
+    t0 = time.perf_counter()
+    rows = np.arange(S) * steps
+    for t in range(STATIC_REPLAY_STEPS):
+        static.load(type(qp)(*(a[t] for a in log_sm)))
+        static.run(t > 0)
+        got = type(sols)(details=type(sols.details)(**{
+            f: getattr(sols.details, f)[rows + t]
+            for f in sols.details.__dataclass_fields__}),
+            z=sols.z[rows + t])
+        check_same_solution(f"replay step {t}: graph replay vs the "
+                            "uncaptured static solve", got, static.out)
+    torch.cuda.synchronize()
+    static_wall = time.perf_counter() - t0
+    check(not bool(flag), "replay: the uncaptured static solve ended a "
+          "gathered loop with work pending")
+    dz, dn = check_like_eager("replay", sols, eager)
+    log(f"[replay] the graph replays equal the uncaptured static replay "
+        f"bit for bit over its first {STATIC_REPLAY_STEPS} steps "
+        f"({static_wall:.3f} s) and the eager replay by status (|dz| "
+        f"{dz:.3e}, n_iter differs on {dn} rows); exhausted flag clear")
 
     d = sols.details
     q = lambda t: t.cpu().numpy()
@@ -533,13 +639,15 @@ def replay_phase(engine, bench):
         f"max {warm_n.max()}; warm polish acceptance {warm_acc:.4%}")
     log(f"[replay] max residuals (bounds, cone) ({rb.max():.3e}, "
         f"{rc.max():.3e}); max equality_viol {eqv.max():.3e}")
-    log("[replay] launches over one replay: " + json.dumps(launches))
-    log("[replay] step-0 stage seconds: " + json.dumps(stages["step0"]))
+    log("[replay] launches over the capturing replay: " + json.dumps(launches))
+    log("[replay] step-0 stage seconds (uncaptured, staged): "
+        + json.dumps(stages["step0"]))
     log(f"[replay] warm-step stage seconds summed over {steps - 1} steps: "
         + json.dumps(stages["warm"]))
     per_warm = {k: v / (steps - 1) for k, v in stages["warm"].items()}
     log("[replay] per warm step (staged seconds; instances rescued / "
-        "rebuilt): " + json.dumps(per_warm))
+        "rebuilt / served by the f64 fallback, and calls that ran it): "
+        + json.dumps(per_warm))
 
     res = np.maximum(rb, rc)
     check((st != 2).all(), "kFactorizationFailed in the replay")
@@ -580,7 +688,6 @@ def replay_phase(engine, bench):
     # those instances; the replay takes its constrained coordinates from
     # the whole log
     qp0 = type(qp)(*(a[..., ::steps].contiguous() for a in qp))
-    ci_log = engine.constrained_indices(qp, CASSIE.shape)
     ci_0 = engine.constrained_indices(qp0, CASSIE.shape)
     if ci_log != ci_0:
         log(f"[replay] constrained coordinates differ: log {ci_log}, "
@@ -591,26 +698,45 @@ def replay_phase(engine, bench):
     solve_batched_ds(qp0, CASSIE.shape, bench, con_idx=ci_log)
     torch.cuda.synchronize()
     cold_wall = time.perf_counter() - t0
-    rows = slice(0, None, steps)
+    rows0 = slice(0, None, steps)
     for name in ("solve_status", "n_iter", "polish_accepted"):
-        check(np.array_equal(q(getattr(d, name))[rows],
+        check(np.array_equal(q(getattr(d, name))[rows0],
                              q(getattr(cold.details, name))),
               f"replay step 0: {name} differs from the cold solve")
-    dz = float(np.abs(z[rows] - q(cold.z)).max())
-    check(dz <= 1e-12, f"replay step 0: z differs from the cold solve by "
-          f"{dz:.3e}")
+    dz0 = float(np.abs(z[rows0] - q(cold.z)).max())
+    check(dz0 <= 1e-12, f"replay step 0: z differs from the cold solve by "
+          f"{dz0:.3e}")
     log(f"[replay] step-0 rows equal the cold solve of the same {S} "
-        f"instances (max |dz| {dz:.3e}); that cold solve took "
+        f"instances (max |dz| {dz0:.3e}); that cold solve (captured) took "
         f"{cold_wall:.6f} s, so a warm step took "
-        f"{(wall - cold_wall) / (steps - 1):.6f} s of wall")
+        f"{(wall - cold_wall) / (steps - 1):.6f} s of wall (eager: "
+        f"{(eager_wall - cold_wall) / (steps - 1):.6f} s beside the captured "
+        f"cold solve)")
 
-    # where a warm step's time goes, from a profiled replay
-    prof = profile_warm_steps(replay)
-    log("[replay] profiled warm steps (per step): " + json.dumps(prof))
+    # where a captured warm step's time goes: a profiled replay, with no
+    # host read in it and both kernels in its trace, and the warm steps
+    # profiled alone
+    prof = profile_captured_replay(replay, cap, log_sm)
+    log("[replay] profiled captured replay and warm steps (per step): "
+        + json.dumps(prof))
+    check(prof["replay_host_reads"] == 0, f"replay: "
+          f"{prof['replay_host_reads']} host reads in a captured replay")
+    check(prof["host_reads"] == 0, f"replay: {prof['host_reads']} host "
+          "reads per captured warm step")
+    for inst, k in prof["replay_hand_kernels"].items():
+        check(k > 0, f"replay: the trace names no {inst}")
+    report.update(first_call_s=first_call, peak_allocated_gb=peak_gb,
+                  replay_walls=walls, replay_median_s=wall,
+                  eager_walls=eager_walls, eager_median_s=eager_wall,
+                  static_steps=STATIC_REPLAY_STEPS, static_wall_s=static_wall,
+                  max_dz_to_eager=dz, n_iter_differs_from_eager=dn,
+                  warm_step_s=(wall - cold_wall) / (steps - 1),
+                  profiled_warm_step=prof)
 
-    # a recorded replay (not counted) keeps each kernel's last warm chunk
-    _, rec = recorded_solve(engine, replay)
-    return launches, rec, stacked, final_warm
+    # a recorded (uncaptured) replay, not counted, keeps each kernel's
+    # last warm chunk
+    _, rec = recorded_solve(engine, lambda: replay(graphs=False))
+    return launches, rec, stacked, final_warm, report
 
 
 # the JAX bench's flags (bench.py:191-200) for the cold batch and the
@@ -1011,7 +1137,7 @@ def eager_dropin_walls(engine, opts, seq):
             sol, warm = solve_batched_ds(
                 QPBatchDS(*(v[..., None].contiguous()
                             for v in qp.__dict__.values())),
-                shape, opts, warm=warm, warm_start=i > 0)
+                shape, opts, warm=warm, warm_start=i > 0, graphs=False)
         else:
             qp1 = QPBatch(*(a[None] for a in qp.__dict__.values()))
             torch.cuda.synchronize()
@@ -1319,7 +1445,8 @@ def humanoid_phase(engine, two_phase):
     pallas_admm.reset_launch_counts()
     t0 = time.perf_counter()
     (sol, _), rec_red = recorded_solve(
-        engine, lambda: solve_batched_ds(qp, shape, full_split))
+        engine, lambda: solve_batched_ds(qp, shape, full_split,
+                                         graphs=False))
     torch.cuda.synchronize()
     launches["reduced"] = counts()
     st = q(sol.details.solve_status)
@@ -1413,23 +1540,26 @@ def share_check(tag, sol, bar, residual=True, first=None):
 
 
 def timed_solves(solve, n=3):
-    """``solve(stage_times)`` once to warm up, then ``n`` timed solves
-    counted from zero (the first counted), then one staged: ``(first
-    solution, launches of the first, walls, stages)``."""
+    """``solve(stage_times)`` once to warm up, counted from zero (on a
+    captured path this call captures, and a wrapper counts while the
+    graphs are captured), then ``n`` timed solves, then one staged
+    (uncaptured): ``(first timed solution, launches of the first call,
+    walls, stages)``."""
     import torch
 
+    reset_counts()
     solve(None)
     torch.cuda.synchronize()
-    walls, sol, launches = [], None, None
+    launches = counts()
+    walls, sol = [], None
     for i in range(n):
-        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = solve(None)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if sol is None:
-            sol, launches = out[0], counts()
+            sol = out[0]
     stages = {}
     solve(stages)
     return sol, launches, walls, stages
@@ -1511,10 +1641,10 @@ def alpha_phase(engine, qp, bench, two_phase, specs, records):
     # all-active first chunks: the approach phase's first (two-phase), the
     # f64 endgame's first with no approach phase, the full engine's first
     _, rec_tp = recorded_solve(engine, lambda: solve_batched_ds(
-        qp, shape, two_phase.replace(alpha=ALPHA)))
+        qp, shape, two_phase.replace(alpha=ALPHA), graphs=False))
     _, rec_eg = recorded_solve(engine, lambda: solve_batched_ds(
         qp, shape, two_phase.replace(alpha=ALPHA, phase1_tol=0.0,
-                                     max_iter=64)))
+                                     max_iter=64), graphs=False))
     full_alpha = FCCQPOptions(**dict(FULL_OPTS, alpha=ALPHA))
     _, rec_f = recorded_full(engine, lambda: solve_batched_ds(
         qp, shape, full_alpha))
@@ -1704,13 +1834,156 @@ def graph_node_types(handle):
         return None
 
 
+def graph_nodes_total(handles):
+    """Nodes by type summed over graphs (a captured graph and the bodies
+    of its IF nodes); None where `libcuda` does not answer."""
+    total = {}
+    for h in handles:
+        c = graph_node_types(h)
+        if c is None:
+            return None
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def capture_report(cap, warm_start):
+    """One capture of a `core.graphs.CapturedBatch`: its warm-up, capture
+    and instantiate seconds, each graph's nodes by type (its IF bodies'
+    included), the IF nodes and kernel nodes in all, and the hand
+    kernels' launches in one replay (counted under capture)."""
+    nodes = {stage: graph_nodes_total(h)
+             for stage, h in cap.graph_handles[warm_start].items()}
+    total = lambda kind: (None if None in nodes.values() else
+                          sum(n.get(kind, 0) for n in nodes.values()))
+    return dict(seconds=cap.capture_seconds[warm_start], nodes=nodes,
+                if_nodes=total("conditional"), kernel_nodes=total("kernel"),
+                launches=cap.capture_launches[warm_start])
+
+
+TIME_FIELDS = ("solve_time", "factorization_time")
+
+
+def check_same_solution(tag, got, want):
+    """z and every diagnostic but the two times bit for bit."""
+    import dataclasses
+
+    import torch
+
+    for f in dataclasses.fields(want.details):
+        if f.name not in TIME_FIELDS:
+            check(torch.equal(getattr(got.details, f.name),
+                              getattr(want.details, f.name)),
+                  f"{tag}: {f.name} differs")
+    check(torch.equal(got.z, want.z), f"{tag}: z differs")
+
+
+def check_like_eager(tag, got, eager, dz_bar=1e-9):
+    """Statuses equal to the eager (reading) solve's, |dz| within the bar;
+    returns |dz| and the instances whose n_iter differs."""
+    import torch
+
+    check(torch.equal(got.details.solve_status, eager.details.solve_status),
+          f"{tag}: statuses differ from the eager solve")
+    dz = float((got.z - eager.z).abs().max())
+    check(dz <= dz_bar, f"{tag}: |dz| {dz:.3e} to the eager solve > "
+          f"{dz_bar:.0e}")
+    return dz, int((got.details.n_iter != eager.details.n_iter).sum())
+
+
+def timed_walls(run, n=3):
+    """Walls of ``n`` calls of ``run`` (each synchronized) and the first
+    call's result."""
+    import torch
+
+    walls, first = [], None
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        first = out if first is None else first
+    return walls, first
+
+
+def captured_cold_phase(engine, qp, bench):
+    """Phase 2's main path: the bench-flag Cassie solve at B = 8192
+    through `solve_batched_ds`, which captures at its first call and
+    replays after. Counted from zero over the capturing call (on a
+    captured path a wrapper counts while the graphs are captured: each
+    launch is a kernel node of them). Then three timed replays (equal to
+    the first bit for bit), the eager (reading) path's three timed solves
+    in the same call, and the uncaptured static solve under cuSOLVER:
+    the replays equal it bit for bit and the eager solve by status and
+    |dz| <= 1e-9, and no static loop ends with work pending. Returns
+    ``(solution, launches, replay walls, report)``."""
+    import torch
+
+    from fcc_qp_tpu_torch import solve_batched_ds
+    from fcc_qp_tpu_torch.core.graphs import CapturedBatch, captured_batch
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+    from fcc_qp_tpu_torch.ops import device_branch, pallas_admm
+
+    shape = CASSIE.shape
+    ci = engine.constrained_indices(qp, shape)
+    flag = device_branch.exhausted_flag("cuda")
+    flag.fill_(False)
+    pallas_admm.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sol, _ = solve_batched_ds(qp, shape, bench)
+    torch.cuda.synchronize()
+    first_call = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    cap = captured_batch(shape, bench, ci, qp.batch, "cuda")
+    check(False in cap._captured, "bench: the solve was not captured")
+    rep = capture_report(cap, False)
+    walls, _ = timed_walls(lambda: solve_batched_ds(qp, shape, bench))
+    again, _ = solve_batched_ds(qp, shape, bench)
+    check_same_solution("bench: a later replay", again, sol)
+    eager_walls, (eager, _) = timed_walls(
+        lambda: solve_batched_ds(qp, shape, bench, graphs=False))
+    static = CapturedBatch(shape, bench, ci, qp.batch, "cuda", graphs=False)
+    static.load(qp)
+    t0 = time.perf_counter()
+    static.run(False)
+    torch.cuda.synchronize()
+    static_wall = time.perf_counter() - t0
+    check(not bool(flag), "bench: a static gathered loop ended with work "
+          "pending (its bound is too small)")
+    check_same_solution("bench: graph replay vs the uncaptured static "
+                        "solve", sol, static.out)
+    dz, dn = check_like_eager("bench: graph replay", sol, eager)
+    rep.update(first_call_s=first_call, peak_allocated_gb=peak_gb,
+               replay_walls=walls, replay_median_s=sorted(walls)[1],
+               eager_walls=eager_walls, eager_median_s=sorted(eager_walls)[1],
+               static_wall_s=static_wall, max_dz_to_eager=dz,
+               n_iter_differs_from_eager=dn,
+               solve_time_s=float(sol.details.solve_time[0]),
+               factorization_time_s=float(sol.details.factorization_time[0]))
+    log("[bench:graphs] B=8192 captured at the first call "
+        f"({first_call:.3f} s, peak {peak_gb:.3f} GB allocated); replay "
+        f"median {rep['replay_median_s']:.6f} s against the eager path's "
+        f"{rep['eager_median_s']:.6f} s (same call); bit for bit the "
+        f"uncaptured static solve ({static_wall:.3f} s); statuses of the "
+        f"eager solve, |dz| {dz:.3e}, n_iter differs on {dn}; exhausted "
+        "flag clear; capture " + json.dumps(rep))
+    return sol, launches, walls, rep
+
+
 def capture_census(engine, opts, qp):
     """The captured solve of ``qp`` (a serving log's first step) made
     afresh with the kernel counters read around each of its stages: the
     hand kernels' launches in one replay of the cold and of the warm
-    graphs, exact (each launch under capture is one node of the graph),
-    checked equal to the warm-up's; and each graph's nodes by type from
-    `libcuda` (`graph_node_types`, the graphs kept for it)."""
+    graphs, counted under capture (each launch is one kernel node of the
+    graph, run or skipped by its IF node), checked equal to the
+    warm-up's; and each graph's nodes by type from `libcuda`
+    (`graph_node_types`, the graphs kept for it, their IF bodies'
+    nodes included)."""
     import torch
 
     from fcc_qp_tpu_torch.core.graphs import (CapturedSolve, SolveBuffers,
@@ -1725,15 +1998,20 @@ def capture_census(engine, opts, qp):
     solve = CapturedSolve(shape, opts, engine,
                           SolveBuffers(shape, engine, "cuda", opts.rho),
                           classify(shape, engine, host))
-    calls = []
+    from fcc_qp_tpu_torch.ops.device_branch import body_graphs
+
+    calls, bodies = [], {}
 
     def counted(fn):
         def run(*args):
-            before = counts()
+            before, n0 = counts(), len(body_graphs)
             out = fn(*args)
             after = counts()
-            calls.append((args[-1], torch.cuda.is_current_stream_capturing(),
+            capturing = torch.cuda.is_current_stream_capturing()
+            calls.append((args[-1], capturing,
                           {k: after[k] - before[k] for k in after}))
+            if capturing:
+                bodies[args[-1], fn.__name__] = body_graphs[n0:]
             return out
         return run
 
@@ -1769,9 +2047,11 @@ def capture_census(engine, opts, qp):
     nodes = None
     if keep:
         nodes = {("warm" if w else "cold"): {
-            stage: graph_node_types(g.raw_cuda_graph())
-            for stage, g in zip(("operator", "iteration"),
-                                solve._captured[w][:2])}
+            stage: graph_nodes_total([g.raw_cuda_graph()]
+                                     + bodies[w, fn_name])
+            for stage, fn_name, g in zip(("operator", "iteration"),
+                                         ("_prepare", "_iterate"),
+                                         solve._captured[w][:2])}
             for w in (False, True)}
     return dict(cold=per[False, True], warm=per[True, True], nodes=nodes)
 
@@ -1795,7 +2075,7 @@ def profile_submits(server, seq, engine):
         with torch.profiler.record_function("submit_loop"):
             for qp in seq[1:]:
                 server.submit(*(qp[k] for k in KEYS))
-            server.drain()
+            results = [r for _, r in server.drain()]
     n = len(seq) - 1
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
@@ -1814,6 +2094,15 @@ def profile_submits(server, seq, engine):
                and not e.name.startswith(("Memcpy", "Memset"))]
     hand = {name: sum(name in e.name for e in kernels)
             for name in GRAPH_KERNELS[engine]}
+    # which hand kernels the solves ran (an IF body a replay skips
+    # launches none of its kernels): the approach / polish chunks where
+    # an f32 iteration ran, the endgame's where an f64 one did, the full
+    # layout's in every f64-engine solve
+    ran = ({"admm_chunk_warp<float": sum(r.details.n_iter_f32 > 0
+                                         for r in results),
+            "admm_chunk_warp<double": sum(r.details.n_iter_ds > 0
+                                          for r in results)}
+           if engine == "ds" else {k: n for k in GRAPH_KERNELS[engine]})
     return dict(
         submits=n,
         retires=sum(e.name == "FCCQPServer.retire" for e in cpu),
@@ -1824,6 +2113,9 @@ def profile_submits(server, seq, engine):
                                       for e in cpu) / n,
         traced_kernels_per_submit=len(kernels) / n,
         traced_hand_kernels_per_submit={k: v / n for k, v in hand.items()},
+        traced_hand_kernel_names=sorted({e.name[:120] for e in kernels
+                                         if "admm_chunk" in e.name}),
+        hand_kernels_ran=ran,
         profiled_kernel_ms_per_submit=sum(
             e.time_range.end - e.time_range.start for e in kernels)
         * 1e-3 / n)
@@ -1929,15 +2221,15 @@ def serving_phase():
                 trace["replay_device_ms"], _ = time_cuda(
                     lambda: server._solve.run(warm_start=True), reps=20)
             traces[f"{engine}_d{depth}"] = trace
+            log(f"[graphs:{engine}] profiled submit loop, depth {depth}: "
+                + json.dumps(trace))
             check(trace["host_reads"] == 0,
                   f"serving {engine} depth {depth}: {trace['host_reads']} "
                   f"host reads in the profiled submit loop")
             check(trace["syncs_outside_retire"] == 0,
                   f"serving {engine} depth {depth}: a synchronization "
                   f"outside a retire: {trace['sync_names_outside_retire']}")
-            for name, k in trace["traced_hand_kernels_per_submit"].items():
-                check(k > 0, f"serving {engine}: the replay trace names no "
-                      f"{name}")
+
             table[engine][depth] = dict(
                 p50_ms=float(np.median(ms)),
                 p95_ms=float(np.percentile(ms, 95)),
@@ -1955,6 +2247,19 @@ def serving_phase():
             "submits after the capture), per depth: "
             + json.dumps({k: v for k, v in traces.items()
                           if k.startswith(engine)}))
+        # the trace of a graph with IF nodes names fewer of its kernels
+        # than run, by an amount that differs between identical submit
+        # loops (ds: 1.83 against 6.58 f32 chunks a submit at different
+        # depths, the solves bit for bit equal): each hand kernel the
+        # profiled solves ran must be named in the traces of the depths
+        # together
+        mine = [t for k, t in traces.items() if k.startswith(engine)]
+        for name in GRAPH_KERNELS[engine]:
+            if any(t["hand_kernels_ran"][name] for t in mine):
+                check(any(t["traced_hand_kernels_per_submit"][name] > 0
+                          for t in mine),
+                      f"serving {engine}: no trace names {name}, which the "
+                      "profiled solves ran")
     check(launches["f64_d1"]["admm_chunk_full_f64"] > 0,
           "serving f64: admm_chunk_full_f64 was not launched")
     check(launches["ds_d1"]["admm_chunk_f32"] > 0,
@@ -2087,30 +2392,29 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     bench = FCCQPOptions(**BENCH_OPTS,
                          polish_newton_steps=CASSIE.polish_newton_steps)
-    t0 = time.perf_counter()
-    solve_batched_ds(qp, CASSIE.shape, bench)
-    torch.cuda.synchronize()
-    log(f"[bench] warm-up solve {time.perf_counter() - t0:.3f} s")
-
-    pallas_admm.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sol, _ = solve_batched_ds(qp, CASSIE.shape, bench)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches_bench = {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
-    # two more timed solves for the spread; solves/s uses the median
-    walls = [wall]
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solve_batched_ds(qp, CASSIE.shape, bench)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    sol, launches_bench, walls, bench_graphs = captured_cold_phase(
+        engine, qp, bench)
     log("[bench] timed walls (s): " + json.dumps(walls))
     wall = sorted(walls)[1]
+    # the staged solve runs uncaptured (a synchronize per stage); its
+    # launches give the host seconds per chunk
     stages = {}
+    pallas_admm.reset_launch_counts()
     solve_batched_ds(qp, CASSIE.shape, bench, stage_times=stages)
+    launches_staged = counts()
+    # the operator stage under cuSOLVER, the backend of the captures (the
+    # eager solve takes PyTorch's own choice, which may be MAGMA)
+    from fcc_qp_tpu_torch.core.graphs import _cusolver
+    stages_cusolver = {}
+    with _cusolver():
+        solve_batched_ds(qp, CASSIE.shape, bench,
+                         stage_times=stages_cusolver)
+    log(f"[bench] operator stage (staged, uncaptured): "
+        f"{stages.get('operator', 0.0):.6f} s with PyTorch's choice of "
+        f"linear-algebra backend, {stages_cusolver.get('operator', 0.0):.6f}"
+        " s under cuSOLVER; hybrid f64 fallback calls "
+        f"{stages.get('n_fallback_calls', 0)} ({stages.get('n_fallback', 0)}"
+        " instances)")
     ok, st, res, eqv = summarize("bench", sol, launches_bench, wall, stages)
     check((st != 2).all(), "kFactorizationFailed in the bench-flag solve")
     check(ok.mean() >= 0.99, f"kSuccess {ok.mean():.4%} < 99%")
@@ -2132,16 +2436,17 @@ def main() -> int:
     # does the host set the pace of a chunk? stage seconds per launch
     host_per_chunk = {
         "approach": stages.get("approach", 0.0)
-        / max(launches_bench["admm_chunk_f32"], 1),
+        / max(launches_staged["admm_chunk_f32"], 1),
         "endgame": stages.get("endgame", 0.0)
-        / max(launches_bench["admm_chunk_f64"], 1),
+        / max(launches_staged["admm_chunk_f64"], 1),
     }
     log("[bench] host seconds per chunk (staged stage seconds / launches): "
         + json.dumps(host_per_chunk))
     # one more bench solve, not counted, that keeps each kernel's inputs:
     # its last chunk is a straggler chunk
     _, rec_bench = recorded_solve(
-        engine, lambda: solve_batched_ds(qp, CASSIE.shape, bench))
+        engine, lambda: solve_batched_ds(qp, CASSIE.shape, bench,
+                                         graphs=False))
 
     # 3. two-phase path through the f64 endgame kernel (its wall includes
     # the recorder's copies of every chunk's inputs)
@@ -2152,7 +2457,7 @@ def main() -> int:
     stages2 = {}
     (sol2, _), rec_tp = recorded_solve(
         engine, lambda: solve_batched_ds(qp, CASSIE.shape, two_phase,
-                                         stage_times=stages2))
+                                         stage_times=stages2, graphs=False))
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
     launches_tp = {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
@@ -2173,7 +2478,8 @@ def main() -> int:
     check(k_h > 32, f"humanoid has k = {k_h} constrained rows, not > 32")
     t0 = time.perf_counter()
     _, rec_h = recorded_solve(
-        engine, lambda: solve_batched_ds(hqp, HUMANOID.shape, two_phase))
+        engine, lambda: solve_batched_ds(hqp, HUMANOID.shape, two_phase,
+                                         graphs=False))
     torch.cuda.synchronize()
     log(f"[humanoid] B=1024 two-phase solve, k={k_h}, "
         f"{time.perf_counter() - t0:.3f} s (recorded)")
@@ -2230,11 +2536,15 @@ def main() -> int:
         ))
 
     # 5. warm replay, and each kernel on its last warm-step chunk
-    launches_replay, rec_replay, log_stacked, replay_warm = replay_phase(
-        engine, bench)
+    (launches_replay, rec_replay, log_stacked, replay_warm,
+     replay_graphs) = replay_phase(engine, bench)
     for (name, kernel, plain, prec, _), r in zip(specs, records):
         r["launches_replay"] = launches_replay[name]
         r["launches"] += launches_replay[name]
+        # in one replay of each captured graph pair, counted under capture
+        r["launches_per_cold_graph"] = bench_graphs["launches"][name]
+        r["launches_per_replay_step0"] = replay_graphs["cold"]["launches"][name]
+        r["launches_per_warm_step"] = replay_graphs["warm"]["launches"][name]
         got = rec_replay[name].last_warm
         if got is None:
             check(name != "admm_chunk_f32",
@@ -2453,6 +2763,10 @@ def main() -> int:
         "per depth, with each depth's profiled submit loop): "
         + json.dumps(dict(dropin=dropin_table, serving=serve_table,
                           traces=serve_traces, census=census)))
+    log("[graphs:batched] the captured batched solves (phase 2, cold B = "
+        f"{B}; phase 5, the replay's step 0 and warm steps at S = "
+        f"{REPLAY_S}): " + json.dumps(dict(cold=bench_graphs,
+                                           replay=replay_graphs)))
     log("[slice] this slice's paths: " + json.dumps(dict(
         io=io_rec, alpha_shares=alpha_shares, adaptive_share=adapt_share,
         fast=fast_out, f32=f32_out, sharded_walls=shard_times,

@@ -29,14 +29,18 @@ of the CUDA kernel `ops.pallas_admm.admm_chunk_full_f64`, with adaptive
 rho refactoring the whole batch between chunks. `solve_batched_ds` takes
 it whenever neither scaling, constrained splitting nor polish is on.
 
-The JAX engine's `lax.while_loop` over chunks is a Python loop here,
-with the convergence test between chunks (one host read per chunk).
-With ``static=True`` (batches of at most 128; the form `core.graphs`
-captures as a CUDA graph) the reduced path reads nothing back: each
-loop runs to the bound its shapes and options give it, every chunk,
-polish round and adaptation the eager path would skip is computed and
-discarded by a device-side select, and every rescue pass gathers the
-whole batch; the results are the eager ones bit for bit.
+The JAX engine's `lax.while_loop` over chunks is a Python loop here.
+The eager path (``static=False``) tests convergence between chunks on
+the host (one read per chunk, and one per gathered pass). With
+``static=True`` (the form `core.graphs` captures as CUDA graphs, at any
+batch size) the reduced path reads nothing back: each loop runs to the
+bound its shapes and options give it (the chunk loops ``n_chunks``
+passes, each gathered loop the ``ceil(B / C)`` passes that cover the
+batch at its capacity C), and every chunk, polish round, rescue pass,
+adaptation and fallback the eager path may skip is a
+`ops.device_branch.branch` on its device flag: an IF node of the graph
+under a capture, computed and selected otherwise. The results are the
+eager ones bit for bit.
 Both engines take over-relaxation (``alpha``, inside the kernels) and
 adaptive rho (between chunks: the residual-balance rule, the scaled
 duals rescaled to keep the unscaled ones, the operator rebuilt only when
@@ -64,16 +68,18 @@ import numpy as np
 import torch
 
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
+from fcc_qp_tpu_torch.ops.device_branch import branch, gathered_loop
 from fcc_qp_tpu_torch.ops.ds_linalg import (
     assemble_kkt_ds,
-    check_static_batch,
-    gathered_passes,
+    exact_capacity,
+    gather_capacity,
     index_tensor,
     kkt_inverse_blocks_refined_ds,
     kkt_inverse_f32_refresh,
     kkt_inverse_f32_seed,
     kkt_solve_refined_ds,
     matvec_ds,
+    pass_count,
     refine_inverse_columns_ds,
     solve_from_seed_ds,
     transpose_ds,
@@ -246,8 +252,14 @@ def _put_last(full: torch.Tensor, idx, sub: torch.Tensor):
 
 def _scatter_last(full: torch.Tensor, idx, sub: torch.Tensor, sel):
     """``full[..., idx] = where(sel, sub, full[..., idx])``, out of place."""
+    return _put_where(full.clone(), idx, sub, sel)
+
+
+def _put_where(full: torch.Tensor, idx, sub: torch.Tensor, sel):
+    """``full[..., idx] = where(sel, sub, full[..., idx])``, in place."""
     m = sel.reshape((1,) * (full.dim() - 1) + (-1,))
-    return _put_last(full, idx, torch.where(m, sub, full[..., idx]))
+    full[..., idx] = torch.where(m, sub, full[..., idx])
+    return full
 
 
 def constrained_indices(qp: QPBatchDS, shape: ProblemShape,
@@ -423,16 +435,20 @@ def _factor_reduced(qp: QPBatchDS, rho, ci, mask, refine_steps: int,
 
 def _factor_reduced_hybrid(qp: QPBatchDS, rho, ci, mask, passes: int,
                            kkt_seed: Optional[torch.Tensor] = None,
-                           static: bool = False):
+                           static: bool = False,
+                           clock: Optional[StageClock] = None):
     """Hybrid operator: f32 Schur NS seed + f64 refinement of ONLY the
     needed inverse columns and the constant term. Instances whose seed
     did not contract, or whose refined constant-term solve misses 1e-5
     relative residual against the true KKT, are re-factored on the f64
     Schur-Cholesky route. ``kkt_seed``: a carried f32 inverse
     (`OperatorCache.kkt_seed`), refreshed instead of rebuilt.
-    ``static``: the fallback runs on the whole batch and is selected per
-    instance, as the JAX engine's `lax.cond` branch does (bit for bit the
-    eager gather when one instance, or none, needs it). Returns (Fcc,
+    ``static``: the fallback is a branch on whether any instance needs it
+    (`ops.device_branch.branch`), run on the whole batch and selected per
+    instance, as the JAX engine's ``lax.cond(jnp.any(bad), ...)`` is (bit
+    for bit the eager gather when one instance, or none, needs it).
+    ``clock`` counts the instances the fallback serves (``n_fallback``)
+    and the calls in which it runs (``n_fallback_calls``). Returns (Fcc,
     xc_const, Fcolj, x_const, X32)."""
     n = qp.Q.shape[0]
     dev = qp.b.device
@@ -453,13 +469,18 @@ def _factor_reduced_hybrid(qp: QPBatchDS, rho, ci, mask, passes: int,
     rres = (M @ xfull.T[:, :, None])[:, :, 0].T - r
     rel = rres.abs().amax(dim=0) / (1.0 + r.abs().amax(dim=0))
     bad = (seed_res > 0.5) | (rel > 1e-5)
+    if clock is not None:
+        clock.count("n_fallback", bad)
+        clock.count("n_fallback_calls", bad.any())
     if static:
-        ds_out = _factor_reduced(qp, rho, ci, mask, max(passes - 1, 1),
-                                 static=True)
-        Fcc, xc_const, Fcolj, x_const = (
-            torch.where(bad, sub, full)
-            for full, sub in zip((Fcc, xc_const, Fcolj, x_const), ds_out)
-        )
+        def fallback(*ops):
+            ds_out = _factor_reduced(qp, rho, ci, mask, max(passes - 1, 1),
+                                     static=True)
+            return tuple(torch.where(bad, sub, full)
+                         for full, sub in zip(ops, ds_out))
+
+        Fcc, xc_const, Fcolj, x_const = branch(
+            bad.any(), fallback, Fcc, xc_const, Fcolj, x_const)
     elif bool(bad.any()):
         idx = torch.nonzero(bad)[:, 0]
         sel = torch.ones_like(idx, dtype=torch.bool)
@@ -486,10 +507,11 @@ def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask,
     ``kkt_seed``: a carried f32 inverse (`OperatorCache.kkt_seed`),
     refreshed against this step's KKT. Instances whose refresh does not
     contract (the data jumped) get a cold seed build, GATHERED in passes
-    of ``min(B, max(128, B // 8))`` instances and looping until every
-    one is rebuilt (``static``: one masked pass, which covers a batch of
-    up to 128); those still flagged after that are ``bad``. ``clock``
-    counts the rescued instances (``n_kkt_rescue``)."""
+    of `ops.ds_linalg.gather_capacity` instances and looping until every
+    one is rebuilt (``static``: the loop's bound of ``ceil(B / C)``
+    passes, each a branch on whether any is left); those still flagged
+    after that are ``bad``. ``clock`` counts the rescued instances
+    (``n_kkt_rescue``)."""
     n = qp.Q.shape[0]
     ci_t = index_tensor(ci, qp.b.device)
     rd = _rho_diag(rho, mask)
@@ -501,8 +523,10 @@ def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask,
         if clock is not None:
             clock.count("n_kkt_rescue", rem)
         B = qp.batch
-        C = min(B, max(128, B // 8))
-        for _ in gathered_passes(static, 1, lambda: rem):
+        C = gather_capacity(B)
+
+        def rescue(X32, seed_res, rem):
+            # in place: a pass with nothing pending rewrites what it read
             idx = torch.argsort(-rem.float(), stable=True)[:C]
             sel = rem[idx]
             Xc, rc = kkt_inverse_f32_seed(qp.Q[..., idx], qp.A_eq[..., idx],
@@ -510,6 +534,11 @@ def _factor_reduced_f32(qp: QPBatchDS, rho, ci, mask,
             X32[idx] = torch.where(sel[:, None, None], Xc, X32[idx])
             seed_res[idx] = torch.where(sel, rc, seed_res[idx])
             rem.index_fill_(0, idx, False)
+            return X32, seed_res, rem
+
+        X32, seed_res, rem = gathered_loop(
+            static, pass_count(B, C), lambda *c: c[-1], rescue,
+            X32, seed_res, rem)
     r = torch.cat([-qp.b.float(), qp.b_eq.float()], dim=0)
     xfull = (X32 @ r.T[:, :, None])[:, :, 0].T
     Fcc, Fcolj = _reduced_blocks(X32[:, :n, ci_t], ci_t)
@@ -533,8 +562,6 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
     nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
     B = qp.batch
     dev = qp.b.device
-    if static:
-        check_static_batch(B)
     ci = np.asarray(con_idx, dtype=np.int64)
     ci_t = index_tensor(ci, dev)
     k = len(con_idx)
@@ -578,7 +605,7 @@ def _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
     elif opts.kkt_factor == "hybrid":
         Fcc, xc_const, Fcolj, x_const, X32 = _factor_reduced_hybrid(
             qps, rho0, ci, mask, opts.kkt_refine_steps + 1, kkt_seed=kkt_seed,
-            static=static,
+            static=static, clock=clock,
         )
     else:
         Fcc, xc_const, Fcolj, x_const = _factor_reduced(
@@ -663,20 +690,6 @@ class _Polish(NamedTuple):
     cls: torch.Tensor
 
 
-def _select(go: torch.Tensor, new, old):
-    """``new`` where the device flag ``go`` (0-d bool) is set, else
-    ``old``: a tensor, or field by field an `_RState` or a NamedTuple (a
-    field both share is kept as it is)."""
-    pick = lambda a, b: a if a is b else torch.where(go, a, b)
-    if isinstance(old, torch.Tensor):
-        return pick(new, old)
-    if dataclasses.is_dataclass(old):
-        return dataclasses.replace(old, **{
-            f.name: pick(getattr(new, f.name), getattr(old, f.name))
-            for f in dataclasses.fields(old)})
-    return type(old)(*(pick(a, b) for a, b in zip(new, old)))
-
-
 def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
                      clock: Optional[StageClock] = None,
                      polish_seed: Optional[torch.Tensor] = None,
@@ -695,8 +708,6 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     B = qp.batch
     dev = qp.b.device
     f64 = torch.float64
-    if static:
-        check_static_batch(B)
     clock = clock or StageClock()
     ci = np.asarray(con_idx, dtype=np.int64)
     ci_t = index_tensor(ci, dev)
@@ -747,16 +758,18 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     def guarded(go, step, st, *carry):
         """``step(st, *carry)``, which updates ``st`` and returns the new
         ``carry``, where the batch-wide flag ``go`` holds: read on the
-        host, or (static) run on a copy of ``st`` and selected field by
-        field on the device. Returns ``(st, *carry)``."""
-        if not static:
-            if bool(go):
-                carry = step(st, *carry)
-            return (st, *carry)
-        new = dataclasses.replace(st)
-        out = step(new, *carry)
-        return (_select(go, new, st),
-                *(_select(go, a, b) for a, b in zip(out, carry)))
+        host, or (static) a `branch` on the device flag, the step run on
+        a copy of ``st``. Returns ``(st, *carry)``."""
+        def body(st, *carry):
+            new = dataclasses.replace(st)
+            return (new, *step(new, *carry))
+
+        return branch(go if static else bool(go), body, st, *carry)
+
+    def assign(st, new):
+        """Take ``new``'s fields into ``st`` (a step that updates ``st``
+        in place around a guarded sub-step)."""
+        vars(st).update(vars(new))
 
     def run_loop(st, n, budget, body):
         """``body(st)`` while ``st.it < budget`` and an instance is
@@ -782,8 +795,11 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
 
     def chunk32(st, Kc, tau):
         """One approach-phase chunk (`admm_chunk_f32`); frozen instances
-        keep their f64 state, iterated ones come back as f32 values."""
-        if op32.get("src") is not st.Fcc:
+        keep their f64 state, iterated ones come back as f32 values. The
+        f32 operator is cached per operator on the eager path; a static
+        solve converts it in every chunk (a chunk may run in a branch's
+        body, and what a skipped body made holds nothing)."""
+        if static or op32.get("src") is not st.Fcc:
             op32.update(src=st.Fcc, Fcc=st.Fcc.float().contiguous(),
                         xc=st.xc_const.float().contiguous())
         (x, s, mu, v, done, _n_iter, itv, xrn, lrn, prim, dual) = admm_chunk_f32(
@@ -832,26 +848,30 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
         ``adaptive_rho_max_adaptations`` rebuilds ran; the operator is
         rebuilt on the whole batch when some rho changed, with the exact
         factor (hybrid, or the f64 Schur route), as the JAX engine's
-        `_reduced_factor_fn` does. Static: the rule and the rebuild are
-        computed at every chunk and kept where both were due."""
+        `_reduced_factor_fn` does. Static: a branch on whether the check
+        is due, holding a branch on whether some rho changed."""
         if not opts.adaptive_rho:
             return
         if static:
+            def check(st):
+                st.next_adapt = st.next_adapt * 2
+                rho, scale, changed = _rho_step(st.prim_norm, st.dual_norm,
+                                                st.done, st.rho, opts,
+                                                static=True)
+
+                def change(st):
+                    st.rho = rho
+                    st.mu = st.mu * scale.double()[None, :]
+                    st.Fcc, st.xc_const, st.Fcolj, st.x_const = rebuild(rho)
+                    st.n_refactor = st.n_refactor + 1
+                    return ()
+
+                assign(st, guarded(changed, change, st)[0])
+                return ()
+
             due = (st.it >= st.next_adapt) & (
                 st.n_refactor < opts.adaptive_rho_max_adaptations)
-            rho, scale, changed = _rho_step(st.prim_norm, st.dual_norm,
-                                            st.done, st.rho, opts,
-                                            static=True)
-            do = due & changed
-            ops_now = (st.Fcc, st.xc_const, st.Fcolj, st.x_const)
-            st.Fcc, st.xc_const, st.Fcolj, st.x_const = (
-                torch.where(do, a, b) for a, b in zip(rebuild(rho), ops_now))
-            st.next_adapt = torch.where(due, st.next_adapt * 2,
-                                        st.next_adapt)
-            st.rho = torch.where(do, rho, st.rho)
-            st.mu = torch.where(do, st.mu * scale.double()[None, :], st.mu)
-            st.n_refactor = st.n_refactor + do.int()
-            clock.count("n_refactor", do)
+            assign(st, guarded(due, check, st)[0])
             return
         if not (st.it >= st.next_adapt
                 and st.n_refactor < opts.adaptive_rho_max_adaptations):
@@ -911,7 +931,7 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
         adopt(st, acc, p.s, p.mu, p.x_res, p.lam_res)
         return _Polish(x=p.x, accept=acc, seed=p.seed, cls=p.cls)
 
-    C_r = min(B, max(128, B // 8))
+    C_r = gather_capacity(B)
 
     def attempt_gathered(st, pol, n_attempts):
         """A retry polish on a capacity-gathered sub-batch of the
@@ -1004,28 +1024,34 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
         # the deferred exact operator, for instances polish did not
         # accept (and whose f32 seed never contracted), built on
         # capacity-gathered sub-batches LOOPING until every one is
-        # covered: an overflow instance left on the f32 operator would
-        # converge to a perturbed fixed point and read kSuccess
+        # covered (static: the ``ceil(B / C3)`` passes that cover the
+        # batch, each a branch on whether any is left): an overflow
+        # instance left on the f32 operator would converge to a perturbed
+        # fixed point and read kSuccess
         maxed = st.itv >= max_iter
         rem = ~(st.done | maxed)
         if prep.seed_bad is not None:
             rem = rem | (prep.seed_bad & ~maxed)
-        C3 = min(B, 128)
-        for _ in gathered_passes(static, 1, lambda: rem):
+        C3 = exact_capacity(B)
+
+        def exact_pass(Fcc, xc_const, Fcolj, x_const, rem):
+            # in place (no chunk32 runs after this build, so the f32
+            # operator cached from the old Fcc is never read again)
             idx = torch.argsort(-rem.float(), stable=True)[:C3]
             sel = rem[idx]
             out = _factor_reduced_hybrid(
                 _gather_qp(qps, idx), st.rho[idx], ci, mask,
-                opts.kkt_refine_steps + 1, static=static,
+                opts.kkt_refine_steps + 1, static=static, clock=clock,
             )[:4]
-            st.Fcc, st.xc_const, st.Fcolj, st.x_const = (
-                _scatter_last(full, idx, sub, sel)
-                for full, sub in zip(
-                    (st.Fcc, st.xc_const, st.Fcolj, st.x_const), out
-                )
-            )
-            rem = rem.clone()
+            ops = (Fcc, xc_const, Fcolj, x_const)
+            for full, sub in zip(ops, out):
+                _put_where(full, idx, sub, sel)
             rem.index_fill_(0, idx, False)
+            return (*ops, rem)
+
+        st.Fcc, st.xc_const, st.Fcolj, st.x_const, _ = gathered_loop(
+            static, pass_count(B, C3), lambda *c: c[-1], exact_pass,
+            st.Fcc, st.xc_const, st.Fcolj, st.x_const, rem)
         clock.mark("exact_build")
 
     it_budget = 2 * n_chunks * K + (opts.polish_rounds - 1) * opts.polish_interval
@@ -1047,10 +1073,14 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
     x = x_s * d.double()
     # equality-constrained instances take the exact presolve
     eq_c = prep.eq_c
-    if nc == 0 and eq_c is not None and (static or bool(eq_c.any())):
-        x_eq = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq,
-                                    static=static)
-        x = torch.where(eq_c[None, :], x_eq * d.double(), x)
+    if nc == 0 and eq_c is not None:
+        def presolve(x):
+            x_eq = kkt_solve_refined_ds(qps.Q, qps.A_eq, -qps.b, qps.b_eq,
+                                        static=static)
+            return (torch.where(eq_c[None, :], x_eq * d.double(), x),)
+
+        (x,) = branch(eq_c.any() if static else bool(eq_c.any()),
+                      presolve, x)
     else:
         eq_c = torch.zeros((B,), dtype=torch.bool, device=dev)
     n_iter = torch.where(eq_c, 0, st.n_iter).to(torch.int32)
@@ -1292,6 +1322,7 @@ def solve_batched_ds(
     device=None,
     stage_times: Optional[dict] = None,
     con_idx: Optional[tuple] = None,
+    graphs: Optional[bool] = None,
 ):
     """Batched cold (or warm-started) solve.
 
@@ -1304,16 +1335,27 @@ def solve_batched_ds(
     over-relaxation (``alpha``) and adaptive rho.
 
     Runs on ``device`` (default CUDA; raises when there is no card),
-    moving ``qp`` / ``warm`` there if they live elsewhere.
-    ``details.solve_time`` / ``factorization_time`` hold wall-clock phase
-    spans (each ending in a device synchronize). ``stage_times``: a dict
-    that receives the synchronized wall seconds of each stage (reduced:
-    scaling, operator, approach, polish, exact_build, endgame, finalize;
-    full: operator, iterate, finalize), and the adaptive-rho refactor
-    count ``n_refactor``; it adds a device synchronize at every stage
-    boundary. ``con_idx``: the constrained coordinates
-    (`constrained_indices`), computed from ``qp`` when None; the replays
-    pass those of their whole log.
+    moving ``qp`` / ``warm`` there if they live elsewhere. On the card the
+    reduced path runs captured: the first call of each ``(shape, opts,
+    batch size, con_idx, warm_start)`` captures its read-free solve as
+    CUDA graphs (`core.graphs.solve_captured`; the counterpart of the JAX
+    package's compile per shape), and every call copies the batch into
+    the graphs' buffers and replays them, with no host read until the
+    result is copied out. ``graphs=False`` runs it uncaptured (the
+    eager path, which reads the device between chunks).
+
+    ``details.solve_time`` / ``factorization_time``: both stages' span
+    and the operator stage's, from CUDA events around the replays
+    (captured), else wall-clock spans each ending in a device
+    synchronize. ``stage_times``: a dict that receives the synchronized
+    wall seconds of each stage (reduced: scaling, operator, approach,
+    polish, exact_build, endgame, finalize; full: operator, iterate,
+    finalize), the adaptive-rho refactor count ``n_refactor`` and the
+    instance counts of the rescues (``n_kkt_rescue``, ``n_polish_rebuild``,
+    ``n_fallback``, ``n_fallback_calls``); it adds a device synchronize at
+    every stage boundary, so such a call runs uncaptured. ``con_idx``:
+    the constrained coordinates (`constrained_indices`), computed from
+    ``qp`` when None; the replays pass those of their whole log.
 
     Returns ``(FCCQPSolution, WarmStartDS)``.
     """
@@ -1325,6 +1367,14 @@ def solve_batched_ds(
     if reduced and con_idx is None:
         con_idx = constrained_indices(qp, shape,
                                       full=opts.splitting == "full")
+    if graphs and dev.type != "cuda":
+        raise ValueError("CUDA graphs need a CUDA device")
+    if (reduced and dev.type == "cuda" and stage_times is None
+            and graphs is not False):
+        from fcc_qp_tpu_torch.core.graphs import solve_captured
+
+        return solve_captured(qp, shape, opts, warm, warm_start, con_idx,
+                              dev)
     t0 = time.perf_counter()
     clock = StageClock(stage_times, dev)
     if reduced and len(con_idx) == 0:
@@ -1400,6 +1450,7 @@ def replay_ds_streams(
     n_streams: int = 1024,
     device=None,
     stage_times: Optional[dict] = None,
+    graphs: Optional[bool] = None,
 ):
     """Warm-started multi-stream replay: the port of
     `fcc_qp_tpu.core.ds_engine.replay_ds_streams`.
@@ -1413,19 +1464,29 @@ def replay_ds_streams(
     in place of the JAX package's `lax.scan`). Each stream is the
     reference's serial warm-started loop; the streams fill the card.
 
-    Runs on ``device`` (default CUDA; raises when there is no card).
+    Runs on ``device`` (default CUDA; raises when there is no card). On
+    the card the reduced path runs captured (`core.graphs.replay_captured`):
+    step 0 replays the cold graphs of the S-stream batch and every later
+    step the warm graphs, which carry the warm state and the operator
+    cache in static buffers, with no host read between steps (the JAX
+    package's ``lax.scan``); the first replay of a configuration
+    captures. ``graphs=False`` runs the steps uncaptured (the eager
+    path, which reads the device between chunks).
     ``stage_times``: a dict that receives, under
     ``"step0"`` and ``"warm"``, the synchronized stage seconds of the
     cold step and their sums over the warm steps, with the instance
     counts ``n_kkt_rescue`` (cold KKT-seed rebuilds of non-contracting
-    refreshes) and ``n_polish_rebuild`` (cold polish-seed rebuilds); it
-    adds a device synchronize at every stage boundary.
+    refreshes), ``n_polish_rebuild`` (cold polish-seed rebuilds),
+    ``n_fallback`` and ``n_fallback_calls`` (the hybrid operator's f64
+    fallback); it adds a device synchronize at every stage boundary, so
+    such a replay runs uncaptured.
 
     Returns ``(solutions, final_warm)``: the solutions stacked in GLOBAL
     time order (row t is step t of the log), with ``details.solve_time``
     the replay wall over the number of steps and
-    ``details.factorization_time`` a cached probe of one cold
-    factorization stage on the step-0 batch, measured after the replay.
+    ``details.factorization_time`` the step-0 operator graph's span
+    (captured), or a cached probe of one cold factorization stage on the
+    step-0 batch, measured after the replay (uncaptured).
     """
     dev = resolve_device(device)
     T = qps.batch
@@ -1444,6 +1505,16 @@ def replay_ds_streams(
         return a.movedim(-1, 0).contiguous()
 
     log = QPBatchDS(*(step_major(a) for a in qps))
+    if graphs and dev.type != "cuda":
+        raise ValueError("CUDA graphs need a CUDA device")
+    if (reduced and dev.type == "cuda" and stage_times is None
+            and graphs is not False):
+        from fcc_qp_tpu_torch.core.graphs import replay_captured
+
+        sols, ws, wall, factor_t = replay_captured(log, shape, opts,
+                                                   con_idx, dev)
+        return stamp_solution_times(_to_global(sols, S), wall / steps,
+                                    factor_t), ws
 
     def step(t):
         return QPBatchDS(*(a[t] for a in log))

@@ -1,7 +1,12 @@
-"""The B = 1 solve as one device program: the port's counterpart of the
-JAX package's program boundary (`fcc_qp_tpu.core.serving._serve_step_ds`
-and the drop-in's jitted solve, each one compiled program with its
-control flow on the device).
+"""The solve as one device program: the port's counterpart of the JAX
+package's program boundary (the drop-in's jitted solve,
+`fcc_qp_tpu.core.serving._serve_step_ds`, and the jitted batched solve
+and warm scan of `fcc_qp_tpu.core.ds_engine`, each one compiled program
+with its control flow on the device).
+
+Every data-dependent skip of a static solve is an IF node of its graph
+(`ops.device_branch.branch`): a replay runs or skips each body on the
+device, with no host read.
 
 A `CapturedSolve` owns, for one ``(shape, options, engine,
 classification)``, the static solve of a single instance (the
@@ -26,14 +31,23 @@ or with ``graphs=False`` (the eager reference `chip_smoke.py` holds the
 replays against), the same static solve runs eagerly, stage by stage.
 A failed capture raises: nothing falls back to the eager solve.
 
+`CapturedBatch` does the same for the reduced path at any batch size:
+`solve_batched_ds` and `replay_ds_streams` on the card replay one (see
+its docstring and `solve_captured`).
+
 Capture runs with cuSOLVER as PyTorch's linear-algebra backend (MAGMA's
 batched routines wait on the host); at one instance PyTorch picks
-cuSOLVER anyway, so the replays equal the eager solve.
+cuSOLVER anyway, so the replays equal the eager solve. At large batches
+the eager (reading) solve may take MAGMA, so a batched capture is held
+bit for bit against the uncaptured static solve under cuSOLVER, and
+against the eager solve by its statuses and a tolerance.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -41,6 +55,7 @@ import torch
 
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
 from fcc_qp_tpu_torch.core.ds_engine import (
+    OperatorCache,
     QPBatchDS,
     WarmStartDS,
     _iterate_reduced,
@@ -48,7 +63,17 @@ from fcc_qp_tpu_torch.core.ds_engine import (
     _solve_reduced_k0,
     constrained_indices,
 )
+from fcc_qp_tpu_torch.ops.device_branch import (
+    _leaves,
+    _rebuild,
+    body_graphs,
+    device_key,
+    exhausted_flag,
+    forget_owned,
+)
+from fcc_qp_tpu_torch.utils.timing import stamp_solution_times
 from fcc_qp_tpu_torch.core.solver import _solve_core
+from fcc_qp_tpu_torch.ops import pallas_admm
 from fcc_qp_tpu_torch.ops.kkt import admm_operator
 from fcc_qp_tpu_torch.types import QPBatch, WarmStart
 
@@ -248,6 +273,7 @@ class CapturedSolve:
         """Warm up both pairs on a side stream (their results are
         dropped, so the warm buffers stay as they are), then capture each
         stage into one memory pool."""
+        exhausted_flag(self.device)
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
@@ -262,8 +288,10 @@ class CapturedSolve:
                 g_prep, g_iter = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
                 with torch.cuda.graph(g_prep, pool=pool):
                     prep = self._prepare(warm_start)
+                forget_owned()
                 with torch.cuda.graph(g_iter, pool=pool):
                     self._store(*self._iterate(prep, warm_start))
+                forget_owned()
                 # the operator stage's outputs stay referenced: the
                 # iteration graph reads them at every replay
                 captured[warm_start] = (g_prep, g_iter, prep)
@@ -292,3 +320,289 @@ class CapturedSolve:
         if between is not None:
             between()
         g_iter.replay()
+
+
+# --------------------------------------------------------------------------
+# the batched reduced solve
+# --------------------------------------------------------------------------
+
+# the batched captures `solve_captured` keeps (least recently used
+# dropped, and with it its graphs' memory), as `core.api.FCCQP` keeps its
+# own: one per (shape, options, batch, classification, cache, device)
+MAX_CAPTURES = 8
+_CAPTURES: collections.OrderedDict = collections.OrderedDict()
+
+
+def _store(dst, src) -> None:
+    """Copy the tensors of ``src`` into the buffers of ``dst`` (the same
+    structure). A source that shares memory with a buffer it does not go
+    to is copied out first, so no buffer is read after it is written."""
+    dsts, srcs = _leaves(dst, []), _leaves(src, [])
+    if len(dsts) != len(srcs):
+        raise ValueError("the solve's outputs changed their structure")
+    targets = {d.untyped_storage().data_ptr() for d in dsts}
+    srcs = [s_.clone() if s_.untyped_storage().data_ptr() in targets
+            and s_ is not d else s_ for d, s_ in zip(dsts, srcs)]
+    for d, s_ in zip(dsts, srcs):
+        if s_ is not d:
+            d.copy_(s_)
+
+
+class CapturedBatch:
+    """The reduced path's static solve of a batch of ``B`` (the
+    ``static=True`` form of `core.ds_engine._solve_ds_reduced`) for one
+    ``(shape, opts, con_idx)``, over static buffers on ``device``:
+
+    * ``inp``: the batch, a batch-last `QPBatchDS` (`load`);
+    * ``warm``: the warm state a warm solve starts from (`load_warm`, or
+      the solve before it); every solve writes its new state into it;
+    * ``cache``: with ``with_cache``, the `OperatorCache` (KKT and polish
+      seeds, classification, Ruiz factors) a warm solve starts from and
+      every solve writes, as a replay threads it from step to step;
+    * ``out``: the solution (`FCCQPSolution`, batch-leading).
+
+    `run` solves the batch in ``inp``, cold or warm, into the buffers.
+    On CUDA the first `run` of each kind captures it: a warm-up of the
+    static solve on a side stream (whose results only give the buffers
+    their shapes), then an operator graph and an iteration graph in one
+    memory pool, kept (``keep_graph``) so their nodes can be counted;
+    later runs replay them. On the CPU, or with ``graphs=False`` (the
+    uncaptured static solve the replays are held against), the static
+    solve runs eagerly. A failed capture raises. ``capture_seconds``
+    holds each capture's warm-up, capture and instantiation seconds,
+    ``capture_launches`` the hand kernels' launches in one replay of each
+    pair (counted while it is captured: every launch is one kernel node,
+    whether or not its IF body runs), and ``graph_handles`` the
+    ``cudaGraph_t`` of each graph and of every IF body in it."""
+
+    def __init__(self, shape: ProblemShape, opts: FCCQPOptions, con_idx,
+                 B: int, device, with_cache: bool = False,
+                 graphs: Optional[bool] = None):
+        self.shape, self.opts, self.B = shape, opts, B
+        self.con_idx = tuple(con_idx)
+        self.with_cache = with_cache
+        self.device = torch.device(device)
+        cuda = self.device.type == "cuda"
+        self.graphs = cuda if graphs is None else graphs
+        if self.graphs and not cuda:
+            raise ValueError("CUDA graphs need a CUDA device")
+        f64 = dict(dtype=torch.float64, device=self.device)
+        self.inp = QPBatchDS(*(torch.zeros((*d, B), **f64)
+                               for d in field_dims(shape)))
+        self.warm: Optional[WarmStartDS] = None
+        self.cache: Optional[OperatorCache] = None
+        self.out = None
+        self._captured: dict = {}
+        self.capture_seconds: dict = {}
+        self.capture_launches: dict = {}
+        self.graph_handles: dict = {}
+
+    def load(self, qp: QPBatchDS) -> None:
+        """Copy the batch ``qp`` (batch-last, any device) into ``inp``."""
+        for buf, a in zip(self.inp, qp):
+            buf.copy_(a)
+
+    def load_warm(self, warm: WarmStartDS) -> None:
+        """Copy a warm state into the ``warm`` buffers."""
+        if self.warm is None:
+            self.warm = WarmStartDS(*(a.to(self.device).clone()
+                                      for a in warm))
+        else:
+            for buf, a in zip(self.warm, warm):
+                buf.copy_(a)
+
+    # -- the static solve, in two stages ------------------------------
+    def _prepare(self, warm_start: bool):
+        s, o = self.shape, self.opts
+        if len(self.con_idx) == 0:
+            # no constrained coordinate: one refined KKT solve is the solve
+            return _solve_reduced_k0(self.inp, s, o, static=True)
+        cache = (self.cache if warm_start and self.cache is not None
+                 else OperatorCache())
+        return _prepare_reduced(
+            self.inp, self.warm if warm_start else None, s, o, warm_start,
+            self.con_idx, kkt_seed=cache.kkt_seed, scales=cache.scales,
+            static=True)
+
+    def _iterate(self, prep, warm_start: bool):
+        """The iteration stage: ``(solution, warm[, cache])``."""
+        if len(self.con_idx) == 0:
+            return prep + (OperatorCache(),) if self.with_cache else prep
+        cache = (self.cache if warm_start and self.cache is not None
+                 else OperatorCache())
+        return _iterate_reduced(
+            self.inp, prep, self.shape, self.opts, self.con_idx,
+            polish_seed=cache.polish_seed, polish_cls=cache.polish_cls,
+            with_cache=self.with_cache, static=True)
+
+    def _targets(self):
+        return ((self.out, self.warm, self.cache) if self.with_cache
+                else (self.out, self.warm))
+
+    def _keep(self, outputs) -> None:
+        """Give the buffers not made yet the shapes of ``outputs``."""
+        if self.out is None:
+            self.out = _copy(outputs[0])
+        if self.warm is None:
+            self.warm = _copy(outputs[1])
+        if self.with_cache and self.cache is None:
+            self.cache = _copy(outputs[2])
+
+    def _solve_uncaptured(self, warm_start: bool) -> None:
+        outputs = self._iterate(self._prepare(warm_start), warm_start)
+        self._keep(outputs)
+        _store(self._targets(), outputs)
+
+    # -- capture and replay -------------------------------------------
+    def _capture(self, warm_start: bool) -> None:
+        dev = self.device
+        exhausted_flag(dev)
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with _cusolver(), torch.cuda.stream(side):
+            outputs = self._iterate(self._prepare(warm_start), warm_start)
+        current.wait_stream(side)
+        self._keep(outputs)
+        del outputs
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        pool = (self._captured[not warm_start][3] if self._captured
+                else torch.cuda.graph_pool_handle())
+        handles = {}
+        launches = {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
+        with _cusolver():
+            graphs = []
+            for stage in ("operator", "iteration"):
+                g = torch.cuda.CUDAGraph(keep_graph=True)
+                n0 = len(body_graphs)
+                with torch.cuda.graph(g, pool=pool):
+                    if stage == "operator":
+                        prep = self._prepare(warm_start)
+                    else:
+                        _store(self._targets(),
+                               self._iterate(prep, warm_start))
+                forget_owned()
+                handles[stage] = [g.raw_cuda_graph()] + body_graphs[n0:]
+                graphs.append(g)
+            t2 = time.perf_counter()
+            for g in graphs:
+                g.instantiate()
+            torch.cuda.synchronize(dev)
+        t3 = time.perf_counter()
+        # the operator stage's outputs stay referenced: the iteration
+        # graph reads them at every replay
+        self._captured[warm_start] = (graphs[0], graphs[1], prep, pool)
+        self.graph_handles[warm_start] = handles
+        self.capture_launches[warm_start] = {
+            fn.__name__: fn.launches - launches[fn.__name__]
+            for fn in pallas_admm.KERNELS}
+        self.capture_seconds[warm_start] = dict(
+            warm_up=t1 - t0, capture=t2 - t1, instantiate=t3 - t2)
+
+    def run(self, warm_start: bool,
+            between: Optional[Callable[[], None]] = None) -> None:
+        """Solve the batch in ``inp`` (from the ``warm`` and ``cache``
+        buffers when ``warm_start``) into the buffers, queued on the
+        current stream; ``between()`` runs after the operator stage is
+        queued. Captures at the first call of each kind on CUDA."""
+        if warm_start and self.warm is None:
+            raise ValueError("warm_start=True needs a warm state")
+        if not self.graphs:
+            with _cusolver() if self.device.type == "cuda" else (
+                    contextlib.nullcontext()):
+                prep = self._prepare(warm_start)
+                if between is not None:
+                    between()
+                outputs = self._iterate(prep, warm_start)
+            self._keep(outputs)
+            _store(self._targets(), outputs)
+            return
+        if warm_start not in self._captured:
+            self._capture(warm_start)
+        g_prep, g_iter, _, _ = self._captured[warm_start]
+        g_prep.replay()
+        if between is not None:
+            between()
+        g_iter.replay()
+
+    def result(self):
+        """The solution, warm state (and cache) in the buffers, copied out
+        (the next run overwrites the buffers)."""
+        return tuple(_copy(x) for x in self._targets())
+
+
+def _copy(x):
+    """``x`` with every tensor cloned."""
+    return _rebuild(x, iter([a.clone() for a in _leaves(x, [])]))
+
+
+def captured_batch(shape: ProblemShape, opts: FCCQPOptions, con_idx,
+                   B: int, device, with_cache: bool = False) -> CapturedBatch:
+    """The `CapturedBatch` of this configuration, made at its first use;
+    the least recently used of more than `MAX_CAPTURES` is dropped."""
+    key = (shape, opts, tuple(con_idx), B, with_cache, device_key(device))
+    if key in _CAPTURES:
+        _CAPTURES.move_to_end(key)
+    else:
+        _CAPTURES[key] = CapturedBatch(shape, opts, con_idx, B, device,
+                                       with_cache=with_cache)
+        if len(_CAPTURES) > MAX_CAPTURES:
+            _CAPTURES.popitem(last=False)
+    return _CAPTURES[key]
+
+
+def solve_captured(qp: QPBatchDS, shape: ProblemShape, opts: FCCQPOptions,
+                   warm: Optional[WarmStartDS], warm_start: bool, con_idx,
+                   device):
+    """`core.ds_engine.solve_batched_ds` on the card, reduced path: the
+    batch (and warm state) copied into the capture's buffers, a replay,
+    the results copied out. ``factorization_time`` is the operator
+    graph's span and ``solve_time`` both graphs', from CUDA events."""
+    cap = captured_batch(shape, opts, con_idx, qp.batch, device)
+    cap.load(qp)
+    if warm_start:
+        if warm is None:
+            raise ValueError("warm_start=True needs a warm state")
+        cap.load_warm(warm)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    cap.run(warm_start, between=ev[1].record)
+    ev[2].record()
+    sol, ws = cap.result()
+    ev[2].synchronize()
+    return (stamp_solution_times(sol, ev[0].elapsed_time(ev[2]) * 1e-3,
+                                 ev[0].elapsed_time(ev[1]) * 1e-3), ws)
+
+
+def replay_captured(log: QPBatchDS, shape: ProblemShape, opts: FCCQPOptions,
+                    con_idx, device):
+    """`core.ds_engine.replay_ds_streams` on the card, reduced path, over
+    the step-major ``log`` (element ``[t, ..., s]`` is stream s's step
+    t): step 0 replays the cold graphs of the stream batch, each later
+    step copies its slice into the input buffers and replays the warm
+    graphs, which read and rewrite the warm state and the operator cache
+    in place. Nothing is read back between steps. Returns ``(per-step
+    solutions, final warm state, wall seconds, step 0's operator-graph
+    seconds)``."""
+    steps, S = log.b.shape[0], log.b.shape[-1]
+    cap = captured_batch(shape, opts, con_idx, S, device, with_cache=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    sols = []
+    for t in range(steps):
+        name = "replay_step0" if t == 0 else "replay_warm_step"
+        with torch.profiler.record_function(name):
+            cap.load(QPBatchDS(*(a[t] for a in log)))
+            if t == 0:
+                ev[0].record()
+                cap.run(False, between=ev[1].record)
+            else:
+                cap.run(True)
+            sols.append(_copy(cap.out))
+    ws = _copy(cap.warm)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    return sols, ws, wall, ev[0].elapsed_time(ev[1]) * 1e-3

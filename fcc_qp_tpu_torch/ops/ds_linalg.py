@@ -16,17 +16,20 @@ batch-LEADING ``(B, N, N)``, which is what `torch.matmul` batches over
 (the JAX package moves them to batch-leading around each matmul too).
 
 ``static=True`` makes the f64 Schur route read-free (the form a CUDA
-graph can hold): every shift level is factored and the extra refinement
-always runs, selected on the device; the results are the eager ones bit
-for bit. Index tensors built from host column lists are cached per
-device (`index_tensor`), so a solve that repeats a classification makes
-no host-to-device copy.
+graph can hold): each shift level and the extra refinement is a
+`ops.device_branch.branch` on its device flag (an IF node under a
+capture, a select otherwise); the results are the eager ones bit for
+bit. Index tensors built from host column lists are cached per device
+(`index_tensor`), so a solve that repeats a classification makes no
+host-to-device copy.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fcc_qp_tpu_torch.ops.device_branch import branch
 
 
 # never evicted: a captured graph reads its index tensors by address, so
@@ -49,31 +52,29 @@ def index_tensor(idx, device) -> torch.Tensor:
     return t
 
 
-# the largest batch a static (read-free) solve takes: every capacity
-# gather of the reduced path, min(B, max(128, B // 8)) or min(B, 128),
-# covers the whole batch up to here, so each gathered loop has a bound
-# fixed by shapes and options
-STATIC_MAX_BATCH = 128
+# the floor of every capacity gather of the reduced path: a gathered
+# pass takes ``min(B, max(CAPACITY_FLOOR, B // 8))`` instances
+# (`gather_capacity`: the cold seed rebuilds, the polish continuation,
+# the retry rounds) or ``min(B, CAPACITY_FLOOR)`` (`exact_capacity`: the
+# lazy exact build). The capacities are the JAX package's, and they set
+# the sub-batch each batched product rounds in; read at call time, so a
+# test may lower the floor
+CAPACITY_FLOOR = 128
 
 
-def check_static_batch(B: int) -> None:
-    """Raise `ValueError` unless a static solve takes a batch of ``B``."""
-    if B > STATIC_MAX_BATCH:
-        raise ValueError(
-            f"a static (read-free) solve takes at most {STATIC_MAX_BATCH} "
-            f"instances, got {B}")
+def gather_capacity(B: int) -> int:
+    """Instances a gathered pass takes from a batch of ``B``."""
+    return min(B, max(CAPACITY_FLOOR, B // 8))
 
 
-def gathered_passes(static: bool, n: int, pending):
-    """The passes of a capacity-gathered loop: while ``pending()`` (a
-    bool tensor) has a set entry, read on the host; ``static``: ``n``
-    passes, each masked by ``pending()`` on the device, with no read
-    (``n`` covers the loop's bound when one gather takes the batch)."""
-    if static:
-        yield from range(n)
-        return
-    while bool(pending().any()):
-        yield None
+def exact_capacity(B: int) -> int:
+    """Instances a pass of the lazy exact build takes."""
+    return min(B, CAPACITY_FLOOR)
+
+
+def pass_count(B: int, C: int) -> int:
+    """Gathered passes that cover a batch of ``B`` at ``C`` a pass."""
+    return -(-B // C)
 
 
 def matvec_ds(F: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -301,8 +302,9 @@ def _chol_regularized(H: torch.Tensor, static: bool = False):
     """Batched Cholesky with escalating relative diagonal shifts; the
     last level (2n) makes the shifted matrix diagonally dominant, so a
     factor always exists. Pivot-based detection: a factor whose squared
-    pivots fall below 1e-11 * scale counts as failed. ``static``: every
-    level is factored. Returns ``(L, shifted)``."""
+    pivots fall below 1e-11 * scale counts as failed. ``static``: each
+    level is a branch on whether any instance still needs it. Returns
+    ``(L, shifted)``."""
     B, n, _ = H.shape
     scale = torch.clamp_min(H.abs().amax(dim=(-1, -2)), 1.0)
     eye = torch.eye(n, dtype=H.dtype, device=H.device)
@@ -321,12 +323,18 @@ def _chol_regularized(H: torch.Tensor, static: bool = False):
     shifted = torch.zeros_like(ok)
     for delta in (1e-10, 1e-8, 1e-6, 1e-4, 1e-2, 2.0 * n):
         need = ~ok
-        if not static and not bool(need.any()):
+
+        def level(L, ok, shifted, need=need, delta=delta):
+            L2, ok2 = factor(torch.where(need, delta * scale, 0.0))
+            return (torch.where(need[:, None, None], L2, L), ok | (need & ok2),
+                    shifted | need)
+
+        if static:
+            L, ok, shifted = branch(need.any(), level, L, ok, shifted)
+        elif bool(need.any()):
+            L, ok, shifted = level(L, ok, shifted)
+        else:
             break
-        L2, ok2 = factor(torch.where(need, delta * scale, 0.0))
-        L = torch.where(need[:, None, None], L2, L)
-        ok = ok | (need & ok2)
-        shifted = shifted | need
     return L, shifted
 
 
@@ -335,15 +343,15 @@ def _kkt_inverse_core(H: torch.Tensor, A: torch.Tensor, refine_steps: int,
     """Full inverse of [[H, A'],[A, 0]] (batch-leading, f64) by Schur
     factorization plus fixed-preconditioner refinement against the true
     KKT; six extra passes on the whole batch when any instance needed a
-    shift (``static``: always run, and kept where a shift was needed)."""
+    shift (``static``: a branch on that flag)."""
     B, n, _ = H.shape
     m = A.shape[1]
     L, sh_H = _chol_regularized(H, static)
-    Hinv = torch.cholesky_inverse(L)
+    Hinv = _chol_inverse(L)
     W = Hinv @ A.transpose(1, 2)                     # (B, n, m)
     S = A @ W
     Ls, sh_S = _chol_regularized(S, static)
-    Sinv = torch.cholesky_inverse(Ls)
+    Sinv = _chol_inverse(Ls)
     T = Sinv @ W.transpose(1, 2)                     # (B, m, n)
     X = torch.cat(
         [torch.cat([Hinv - W @ T, T.transpose(1, 2)], dim=-1),
@@ -358,13 +366,25 @@ def _kkt_inverse_core(H: torch.Tensor, A: torch.Tensor, refine_steps: int,
     X0 = X
     for _ in range(refine_steps):
         X = X + X0 @ (eye - M @ X)
-    shifted = (sh_H | sh_S).any()
-    if static or bool(shifted):
-        Xs = X
+
+    def extra(X):
         for _ in range(6):
-            Xs = Xs + X0 @ (eye - M @ Xs)
-        X = torch.where(shifted, Xs, X) if static else Xs
+            X = X + X0 @ (eye - M @ X)
+        return (X,)
+
+    shifted = (sh_H | sh_S).any()
+    (X,) = branch(shifted if static else bool(shifted), extra, X)
     return X
+
+
+def _chol_inverse(L: torch.Tensor) -> torch.Tensor:
+    """``(L L')^{-1}`` from the batched lower factor L, as ``L^{-T}
+    L^{-1}`` by one batched triangular solve (cuBLAS on the card; the
+    library's `cholesky_inverse` runs one cuSOLVER call per instance
+    there, three graph nodes and ~50 us each)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return Linv.transpose(-1, -2) @ Linv
 
 
 def kkt_inverse_blocks_refined_ds(

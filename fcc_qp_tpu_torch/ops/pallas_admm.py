@@ -93,24 +93,21 @@ def _nvcc() -> str:
     return str(path) if path.exists() else "nvcc"
 
 
-def build_kernels() -> ctypes.CDLL:
-    """Compile `csrc/admm_chunk.cu` (once per source content) into
-    ``_build/`` and load it. Records the compile seconds, the compiler's
-    log (kept beside the library, so a cached build reports it too) and
-    its register/spill report per instantiation in `build_info`."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = _BUILD / f"libadmm_chunk_{tag}.so"
+def build_library(source: pathlib.Path, flags=NVCC_FLAGS):
+    """Compile the CUDA source ``source`` with ``flags`` into a shared
+    library in ``_build/``, once per source content and flags (a later
+    call finds it there). Returns ``(path, compiler log, seconds)``; the
+    log is kept beside the library, so a cached build reports it too."""
+    src = source.read_bytes()
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
+    so = _BUILD / f"lib{source.stem}_{tag}.so"
     log = so.with_suffix(".log")
     t0 = time.perf_counter()
     if not (so.exists() and log.exists()):
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+            [_nvcc(), *flags, "-o", str(tmp), str(source)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -121,10 +118,21 @@ def build_kernels() -> ctypes.CDLL:
         tmp_log.write_text(proc.stderr)
         os.replace(tmp_log, log)
         os.replace(tmp, so)
-    build_info["seconds"] = time.perf_counter() - t0
+    return so, log.read_text(), time.perf_counter() - t0
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Compile `csrc/admm_chunk.cu` (`build_library`) and load it.
+    Records the compile seconds, the compiler's log and its
+    register/spill report per instantiation in `build_info`."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    so, log, seconds = build_library(_SOURCE)
+    build_info["seconds"] = seconds
     build_info["library"] = str(so)
-    build_info["log"] = log.read_text()
-    build_info["ptxas"] = ptxas_report(build_info["log"])
+    build_info["log"] = log
+    build_info["ptxas"] = ptxas_report(log)
     lib = ctypes.CDLL(str(so))
     common = [ctypes.c_void_p]
     i = ctypes.c_int

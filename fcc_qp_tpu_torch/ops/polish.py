@@ -21,10 +21,11 @@ batch-LAST; the f32 seeds ``(B, N2, N2)`` are batch-leading. The
 capacity gathers of the continuation (``argsort(-mask, stable=True)[:C]``)
 stay on the device.
 
-``static=True`` (batches of at most 128, where one gather's capacity
-covers the batch) reads nothing back: the seed rebuild is one masked
-pass, and the continuation runs its ``newton_steps - 1`` passes masked
-per instance; the results are the eager ones bit for bit.
+``static=True`` reads nothing back: each gathered loop (the seed
+rebuild, the continuation's passes) runs the bound its shapes fix, each
+pass a `ops.device_branch.branch` on whether work is pending, and the
+full-batch second step is a branch on the pool's size; the results are
+the eager ones bit for bit.
 """
 
 from __future__ import annotations
@@ -34,11 +35,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from fcc_qp_tpu_torch.ops.device_branch import branch, gathered_loop
 from fcc_qp_tpu_torch.ops.ds_linalg import (
-    check_static_batch,
-    gathered_passes,
+    gather_capacity,
     index_tensor,
     matvec_ds,
+    pass_count,
     transpose_ds,
 )
 from fcc_qp_tpu_torch.ops.projections import project_cone_ds, sqrt_rn
@@ -233,24 +235,31 @@ def _seed_refresh_or_rebuild(seed, Mb, steps: int, clock=None,
                              static: bool = False):
     """Refresh a carried seed; instances whose refresh does not contract
     (residual > 0.3) get a cold rebuild, capacity-gathered
-    (``max(128, B // 8)`` per pass) and looping until every one is
-    rebuilt (``static``: one pass, which covers a batch of up to 128).
-    ``clock`` (`utils.timing.StageClock`) counts the rebuilt instances
+    (`ops.ds_linalg.gather_capacity` per pass) and looping until every
+    one is rebuilt (``static``: the ``ceil(B / C)`` passes that cover the
+    batch, each a branch on whether any is left). ``clock``
+    (`utils.timing.StageClock`) counts the rebuilt instances
     (``n_polish_rebuild``)."""
     B = Mb.shape[0]
     X, r = _ns_refresh_guarded(seed, Mb, steps)
     rem = r > 0.3
     if clock is not None:
         clock.count("n_polish_rebuild", rem)
-    C = min(B, max(128, B // 8))
+    C = gather_capacity(B)
     if static or bool(rem.any()):
         X = X.clone()
-    for _ in gathered_passes(static, 1, lambda: rem):
+
+    def rebuild(X, rem):
+        # in place: a pass with nothing pending rewrites what it read
         idx = torch.argsort(-rem.float(), stable=True)[:C]
         Xc = _polish_seed_f32(Mb[idx])
         keep = rem[idx][:, None, None]
         X[idx] = torch.where(keep, Xc, X[idx])
         rem.index_fill_(0, idx, False)
+        return X, rem
+
+    X, _ = gathered_loop(static, pass_count(B, C), lambda X, rem: rem,
+                         rebuild, X, rem)
     return X
 
 
@@ -329,7 +338,7 @@ def polish_reduced(
     ``init_class``: packed classification to use for the first assembly
     instead of a fresh inflated read (must accompany a carried seed).
     ``clock``: a `utils.timing.StageClock` that counts the seed rebuilds.
-    ``static``: read-free, for a batch of at most `STATIC_MAX_BATCH`.
+    ``static``: read-free (the module docstring).
     """
     nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
     m = qps.A_eq.shape[0]
@@ -341,9 +350,7 @@ def polish_reduced(
     ci = np.asarray(ci)
     ci_t = index_tensor(ci, dev)
     ci_box = ci_t[:kb]
-    C2 = min(B, max(128, B // 8))
-    if static:
-        check_static_batch(B)
+    C2 = gather_capacity(B)
 
     t0 = s + mu_dual
     if init_class is None:
@@ -549,10 +556,15 @@ def polish_reduced(
             eta = torch.where(chN, neta, eta)
         seed_cls = used_cls
 
+        carry = (X32, best, low, up, surf, apex, lam_lin, eta, seed_cls,
+                 steps, changed)
+
         # step 2 runs FULL-batch when the pool exceeds the gather capacity
-        # (never when one gather covers the batch, as a static solve's does)
+        # (static: a branch on that flag)
         rem = changed & (steps < newton_steps)
-        if not static and int(rem.sum()) > C2:
+
+        def full_step(X32, best, low, up, surf, apex, lam_lin, eta,
+                      seed_cls, steps, changed):
             X32, fx, fy, fmu, f_snew, f_xr, f_lr, f_score = pdas_step(
                 ctx, low, up, surf, apex, lam_lin, eta, X32
             )
@@ -586,11 +598,17 @@ def polish_reduced(
             seed_cls = torch.where(remN, f_cls, seed_cls)
             steps = steps + rem.int()
             changed = torch.where(rem, changed_n, changed)
+            return (X32, best, low, up, surf, apex, lam_lin, eta, seed_cls,
+                    steps, changed)
 
-        # steps 3+ on capacity-gathered sub-batches of the pool
-        pending = lambda: changed & (steps < newton_steps)
-        for _ in gathered_passes(static, newton_steps - 1, pending):
-            rem = pending()
+        if static:
+            carry = branch(rem.sum() > C2, full_step, *carry)
+        elif int(rem.sum()) > C2:
+            carry = full_step(*carry)
+
+        def gathered_step(X32, best, low, up, surf, apex, lam_lin, eta,
+                          seed_cls, steps, changed):
+            rem = changed & (steps < newton_steps)
             idx = torch.argsort(-rem.float(), stable=True)[:C2]
             sel = rem[idx]
             c = _gather_ctx(ctx, idx)
@@ -641,11 +659,34 @@ def polish_reduced(
             if nc:
                 lam_lin = upd(lam_lin, nlam_s, sel[None, None, :])
                 eta = upd(eta, neta_s, selN)
-            X32 = X32.clone()
+            # the static seed is the polish's own (made in the first
+            # solve); a pass with nothing pending rewrites what it read
+            if not static:
+                X32 = X32.clone()
             X32[idx] = torch.where(sel[:, None, None], sX, X32[idx])
             seed_cls = upd(seed_cls, s_cls, selN)
             steps = put(steps, steps[idx] + sel.int())
             changed = upd(changed, changed_s, sel)
+            return (X32, best, low, up, surf, apex, lam_lin, eta, seed_cls,
+                    steps, changed)
+
+        # steps 3+ on capacity-gathered sub-batches of the pool. Bound of
+        # the static form: an instance takes part in at most
+        # newton_steps - 1 passes (steps starts at 1, each pass it is in
+        # adds one, and it leaves the pool at newton_steps); a pass with
+        # more than C2 pending takes C2 of the at most B (newton_steps - 1)
+        # steps left, and the pool only shrinks, so such passes come
+        # first and number at most ceil(B (newton_steps - 1) / C2) (none
+        # when B <= C2); once C2 or fewer are pending every pass takes
+        # them all, and newton_steps - 1 passes empty the pool
+        bound = newton_steps - 1
+        if B > C2:
+            bound += pass_count(B * (newton_steps - 1), C2)
+        carry = gathered_loop(
+            static, bound, lambda *c: c[-1] & (c[-2] < newton_steps),
+            gathered_step, *carry)
+        (X32, best, low, up, surf, apex, lam_lin, eta, seed_cls, steps,
+         changed) = carry
         used_cls = seed_cls
 
     x, mu_new, s_new, _best_cls, x_res, lam_res, score = best

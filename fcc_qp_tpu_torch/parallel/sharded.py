@@ -228,9 +228,10 @@ def solve_batched_ds_sharded(
                                       full=opts.splitting == "full")
 
     def run(q, w, d):
+        # uncaptured: the sharded solves are not captured yet
         sol, ws = solve_batched_ds(q, shape, opts, warm=w,
                                    warm_start=warm_start, device=d,
-                                   con_idx=con_idx)
+                                   con_idx=con_idx, graphs=False)
         # the solution is batch-leading: carry it batch-last like the rest
         return map_tree(lambda a: a.movedim(0, -1) if a.dim() else a,
                         sol), ws
