@@ -69,13 +69,26 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    launched it).
 6. The reference-semantics path: the full-splitting engine (the package
    defaults' path) on the same Cassie batch, B=8192, at `FULL_OPTS`
-   (exact presolve, adaptive rho), run once to warm up, three times
-   timed and once staged. Checks: no kFactorizationFailed and no NaN,
+   (exact presolve, adaptive rho), captured (`captured_path`, below),
+   and once staged (uncaptured). Checks: no kFactorizationFailed and no NaN,
    residuals <= 1e-6 on kSuccess, a kSuccess share at least the JAX
    package's on the first 512 instances less 1%, the full-layout kernel
    launched. One more solve under `torch.profiler` sums the kernel's
    device time over its launches, printed beside the `iterate` stage
    (the rest of that stage is the adaptive-rho rebuilds and the host).
+   `captured_path`, here and in phases 13 and 14: the entry point's
+   first call captures (counted from zero: a wrapper counts while the
+   graphs are captured); printed: the capture's warm-up, capture and
+   instantiate seconds, nodes by type (IF bodies included, IF nodes
+   counted), the hand kernels per graph, the peak memory; three timed
+   replays beside three eager (reading) solves in the same call; the
+   adaptive-rho rebuild that the graphs hold in IF bodies, captured
+   alone and timed (``rebuild_body``). Checks: a later replay equals
+   the first, the replays equal the uncaptured static solve under
+   cuSOLVER bit for bit and the eager solve by statuses and n_iter with
+   |dz| <= 1e-9; the exhausted flag clear; a captured call under
+   `torch.profiler` has no host read and the path's full-layout kernel
+   in its trace.
 7. The drop-in `FCCQP(60, 38, 12, 38)` over a 200-step walking log, the
    reference loop (``set_warm_start(i > 0)``), on the f64 engine at the
    README quick-start options and on the ds engine with rho = 0.05; on
@@ -135,13 +148,21 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    ``bench.py --adaptive-rho``): held to the JAX share less 1%; its
    operator rebuilds.
 13. The batch-level engine `solve_batched_fast` at B = 8192 with adaptive
-   rho (`FAST_OPTS`) and with alpha = 1.6 (`FAST_ALPHA_OPTS`): JAX shares
-   less 1%, rebuilds, time per solve.
-14. The parity engine on f32 data (``bench.py --engine f32``) at B = 8192:
-   the JAX f32 engine's share less 1%, and the f32 full-layout kernel
-   (`admm_chunk_full_f32`) against its plain version bit for bit on the
-   solve's one launch of all its iterations.
-15. `FCCQPServer` over a 64-step walking log at depth 1, 2, 4 and 8 on
+   rho (`FAST_OPTS`) and with alpha = 1.6 (`FAST_ALPHA_OPTS`), each
+   captured (`captured_path`) and staged once: JAX shares less 1%,
+   rebuilds, time per solve.
+14. The parity engine on f32 data (``bench.py --engine f32``) at B = 8192,
+   captured (`captured_path`): the JAX f32 engine's share less 1%, and
+   the f32 full-layout kernel (`admm_chunk_full_f32`) against its plain
+   version bit for bit on an uncaptured solve's one launch of all its
+   iterations.
+15. The parity engine's `replay`, captured (a cold graph pair, then the
+   warm pair replayed at every later step), over the drop-in's 200-step
+   walking log at B = 1 and over 256 streams x 16 steps of phase 5's
+   walking log: the checks of `captured_path` for the replay (the
+   uncaptured static chain bit for bit, the eager replay by statuses,
+   n_iter and |dz| <= 1e-9, a profiled replay with no host read).
+16. `FCCQPServer` over a 64-step walking log at depth 1, 2, 4 and 8 on
    both engines. First, per engine, a capture census
    (`capture_census`): the solve of the log's first step captured
    afresh with the kernel counters read around each stage, which gives
@@ -164,25 +185,32 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    skipped launches none of its kernels); a replay's device time from
    CUDA events over 20 back-to-back replays. Since the IF nodes, the
    census's kernel nodes are those a replay may run, not those it runs.
-16. The sharded solves (`parallel`) over [cuda:0] and over two shards on
-   the one card at B = 8192 and 8191, both engines at `SHARD_OPTS`: equal
-   to the unsharded solve (n_iter, statuses, |dz| <= 1e-8 ds / 1e-10
-   f64) with equal summary aggregates; then `parallel.scaling_bench`
-   over one and two shards at the bench flags.
-17. One JSON line with a record per kernel (the first chunk's numbers
+17. The sharded solves (`parallel`), each shard replaying its engine's
+   capture: first two shards of 4096 on the one card at B = 8192, both
+   engines at `SHARD_OPTS`, with the checks of `captured_path` (each
+   shard bit for bit its uncaptured static solve; the eager unsharded
+   solve by statuses, n_iter and |dz| <= 1e-9; a profiled sharded call
+   with no host read); then over [cuda:0] and over two shards at B =
+   8192 and 8191: equal to the unsharded solve (n_iter, statuses, |dz|
+   <= 1e-8 ds / 1e-10 f64) with equal summary aggregates; then
+   `parallel.scaling_bench` over one and two shards at the bench flags.
+18. One JSON line with a record per kernel (the first chunk's numbers
    under the plain keys, the straggler chunk's under ``*_tail``, the
    humanoid's under ``*_k47`` / ``*_k76`` / ``*_n76``, the warm step's
    under ``*_warm``, the drop-in chunk's under ``*_b1``, alpha = 1.6's
    under ``*_alpha``; ``ms_idle`` is a launch on the straggler inputs
    with every instance done; ``launches`` sums every path's count, and
-   ``launches_<path>`` splits it: on the captured paths (the bench
-   solve, the replay, drop-in and serving, alpha and adaptive rho) a
-   wrapper counts at the warm-up and the capture, and
+   ``launches_<path>`` splits it: on the captured paths (every path but
+   the recorded solves) a wrapper counts at the warm-up and the capture,
+   and
    ``launches_per_replay`` (``_cold``) gives its launches in one replay
    of each engine's warm (cold) B = 1 graphs, from the capture census,
    ``launches_per_cold_graph`` in one replay of the B = 8192 bench
    graphs, ``launches_per_replay_step0`` / ``launches_per_warm_step``
-   in one replay of the replay's cold / warm graphs, each counted under
+   in one replay of the replay's cold / warm graphs, and for the
+   full-layout kernels ``launches_per_full_graph``, ``_fast_graph``,
+   ``_f32_graph``, ``_parity_replay`` and ``_shard_graph`` in one replay
+   of the graph pair of phases 6, 13, 14, 15 and 17, each counted under
    capture: an IF body's kernels count whether or not it runs), the
    `nvidia-smi` line, and the final JSON status line.
 
@@ -565,8 +593,8 @@ def replay_phase(engine, bench):
     first_call = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
     peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
-    cap = captured_batch(CASSIE.shape, bench, ci_log, S, "cuda",
-                         with_cache=True)
+    cap = captured_batch(engine.reduced_stages(CASSIE.shape, bench, ci_log,
+                                               cached=True), S, "cuda")
     check(sorted(cap._captured) == [False, True],
           "replay: the cold and warm steps were not both captured")
     report = {("cold" if not w else "warm"): capture_report(cap, w)
@@ -596,8 +624,9 @@ def replay_phase(engine, bench):
 
     # the uncaptured static replay under cuSOLVER, step by step: the
     # graph replays equal it bit for bit
-    static = CapturedBatch(CASSIE.shape, bench, ci_log, S, "cuda",
-                           with_cache=True, graphs=False)
+    static = CapturedBatch(engine.reduced_stages(CASSIE.shape, bench, ci_log,
+                                                 cached=True), S, "cuda",
+                           graphs=False)
     log_sm = type(qp)(*(a.reshape(*a.shape[:-1], S, steps).movedim(-1, 0)
                         for a in qp))
     t0 = time.perf_counter()
@@ -927,37 +956,32 @@ def recorded_full(module, run, name="admm_chunk_full_f64"):
 
 def full_phase(engine):
     """Phase 6: the full-splitting cold Cassie solve, B = 8192, at
-    FULL_OPTS. Returns its launches and a recorder of one more solve."""
+    FULL_OPTS, captured (`captured_path`, the rebuild body timed), then
+    one staged solve (uncaptured). Returns its launches, a recorder of one
+    more (uncaptured) solve, the kernel's profiled device time and the
+    capture's report."""
     import numpy as np
     import torch
 
     from fcc_qp_tpu_torch import FCCQPOptions, solve_batched_ds, to_ds_batch
     from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_batch
-    from fcc_qp_tpu_torch.ops import pallas_admm
     from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
 
     stacked = stack_qp_dicts(generate_osc_batch(CASSIE, B, seed=0))
     qp = to_ds_batch(stacked)
     opts = FCCQPOptions(**FULL_OPTS)
-    t0 = time.perf_counter()
-    solve_batched_ds(qp, CASSIE.shape, opts)
-    torch.cuda.synchronize()
-    log(f"[full] warm-up solve {time.perf_counter() - t0:.3f} s")
-    walls = []
-    for i in range(3):
-        if i == 0:
-            pallas_admm.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, _ = solve_batched_ds(qp, CASSIE.shape, opts)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        if i == 0:
-            sol = out
-            launches = {fn.__name__: fn.launches for fn in pallas_admm.KERNELS}
-    wall = sorted(walls)[1]
+    rho = torch.full((B,), opts.rho, dtype=torch.float32, device="cuda")
+    sol, launches, rep = captured_path(
+        "full", engine.full_stages(CASSIE.shape, opts), qp,
+        lambda g: solve_batched_ds(qp, CASSIE.shape, opts, graphs=g),
+        "admm_chunk_full_warp<double",
+        rebuild=lambda: engine._factor(qp, rho, opts.kkt_refine_steps,
+                                       static=True))
+    walls = rep["replay_walls"]
+    wall = rep["replay_median_s"]
     stages = {}
     solve_batched_ds(qp, CASSIE.shape, opts, stage_times=stages)
+    rep["n_refactor"] = stages["n_refactor"]
     d = sol.details
     q = lambda t: t.cpu().numpy()
     st, n_iter = q(d.solve_status), q(d.n_iter)
@@ -965,25 +989,29 @@ def full_phase(engine):
     rb, rc = q(d.admm_residual_bounds), q(d.admm_residual_friction_cone)
     eqv = q(d.equality_viol)
     z = q(sol.z)
-    log("[full] timed walls (s): " + json.dumps(walls))
+    log("[full] timed walls (s, graph replays): " + json.dumps(walls))
     log(f"[full] Cassie B={B} full splitting, exact presolve, adaptive rho: "
         f"kSuccess {ok.sum()}/{len(st)} = {ok.mean():.4%}; kMaxIterations "
         f"{(st == 1).sum()}; kFactorizationFailed {(st == 2).sum()}")
     log(f"[full] n_iter p50 {np.median(n_iter):.0f}, max {n_iter.max()}; "
         f"max residuals kSuccess (bounds, cone) ({rb[ok].max():.3e}, "
         f"{rc[ok].max():.3e}); max equality_viol {eqv.max():.3e}")
-    log(f"[full] median wall {wall:.6f} s -> {B / wall:.1f} solves/s; "
+    log(f"[full] median wall {wall:.6f} s -> {B / wall:.1f} solves/s "
+        f"(captured; eager {rep['eager_median_s']:.6f} s in the same call); "
         f"factorization_time {float(d.factorization_time[0]):.6f} s of "
-        f"solve_time {float(d.solve_time[0]):.6f} s; stage seconds (and "
-        f"the adaptive-rho refactor count) " + json.dumps(stages))
-    log("[full] launches: " + json.dumps(launches))
+        f"solve_time {float(d.solve_time[0]):.6f} s; {stages['n_refactor']} "
+        f"rebuilds a solve, one rebuild body "
+        f"{rep['rebuild_body']['ms']:.6f} ms of device time; staged "
+        "(uncaptured) stage seconds " + json.dumps(stages))
+    log("[full] launches (capture): " + json.dumps(launches))
     device = full_kernel_device_time(
         lambda st_: solve_batched_ds(qp, CASSIE.shape, opts, stage_times=st_))
-    log(f"[full] one solve under torch.profiler: admm_chunk_full_f64 device "
-        f"time {device['ms']:.6f} ms over {device['launches']} launches; its "
-        f"iterate stage {device['iterate_s']:.6f} s there and "
-        f"{stages['iterate']:.6f} s in the staged solve above (the rest of "
-        f"iterate: the adaptive-rho rebuilds and the host's chunk loop)")
+    log(f"[full] one staged (uncaptured) solve under torch.profiler: "
+        f"admm_chunk_full_f64 device time {device['ms']:.6f} ms over "
+        f"{device['launches']} launches; its iterate stage "
+        f"{device['iterate_s']:.6f} s there and {stages['iterate']:.6f} s in "
+        "the staged solve above (the rest of iterate: the adaptive-rho "
+        "rebuilds and the host's chunk loop)")
     check((st != 2).all(), "kFactorizationFailed in the full-splitting solve")
     check(np.isfinite(z).all() and z.shape == (B, 60),
           "full-splitting solution not finite or of the wrong shape")
@@ -997,8 +1025,9 @@ def full_phase(engine):
     check(launches["admm_chunk_full_f64"] > 0,
           "admm_chunk_full_f64 was not launched in the full-splitting solve")
     _, rec = recorded_full(
-        engine, lambda: solve_batched_ds(qp, CASSIE.shape, opts))
-    return launches, rec, device
+        engine, lambda: solve_batched_ds(qp, CASSIE.shape, opts,
+                                         graphs=False))
+    return launches, rec, device, rep
 
 
 def full_kernel_device_time(solve):
@@ -1365,7 +1394,7 @@ def humanoid_phase(engine, two_phase):
     opts = FCCQPOptions(**FULL_OPTS)
     t0 = time.perf_counter()
     _, rec_full = recorded_full(
-        engine, lambda: solve_batched_ds(qp, shape, opts))
+        engine, lambda: solve_batched_ds(qp, shape, opts, graphs=False))
     torch.cuda.synchronize()
     log(f"[humanoid:full] recorded solve {time.perf_counter() - t0:.3f} s")
     check(rec_full.first is not None and rec_full.first[0][8].shape[0] == n,
@@ -1500,6 +1529,13 @@ SERVE_F64_OPTS = dict(max_iter=2000, rho=1.0, eps_fcone=1e-6, eps_bound=1e-6)
 # (a shard of 16 instances against the same 16 in a batch of 32, on the
 # CPU: 3.8e-6 in the seed, one approach-phase iteration on one instance)
 SHARD_OPTS = dict(max_iter=300, rho=1.0, eps_fcone=1e-4, eps_bound=1e-4)
+# the parity engine's captured replay: over the drop-in's walking log at
+# B = 1 (DROPIN_OPTS), and over streams of the bench's walking log at the
+# JAX package's server-test options (tests/test_serving.py:19-24)
+PARITY_REPLAY_STREAMS = 256
+PARITY_REPLAY_STEPS = 16
+PARITY_REPLAY_OPTS = dict(max_iter=2000, rho=1.0, eps_fcone=1e-6,
+                          eps_bound=1e-6)
 
 
 def counts():
@@ -1647,7 +1683,7 @@ def alpha_phase(engine, qp, bench, two_phase, specs, records):
                                      max_iter=64), graphs=False))
     full_alpha = FCCQPOptions(**dict(FULL_OPTS, alpha=ALPHA))
     _, rec_f = recorded_full(engine, lambda: solve_batched_ds(
-        qp, shape, full_alpha))
+        qp, shape, full_alpha, graphs=False))
     firsts = {"admm_chunk_f64": rec_eg, "admm_chunk_f32": rec_tp}
     for (name, kernel, plain, prec, _), r in zip(specs, records):
         args, kw = firsts[name][name].first
@@ -1714,35 +1750,49 @@ def adaptive_phase(qp, bench):
 
 def fast_phase(stacked):
     """Phase 13: the batch-level engine `solve_batched_fast` at B = 8192
-    with adaptive rho, and with alpha = 1.6: shares against the JAX
-    package's less 1%, operator rebuilds and the time per solve."""
+    with adaptive rho, and with alpha = 1.6, each captured
+    (`captured_path`, the rebuild body timed) and staged once
+    (uncaptured): shares against the JAX package's less 1%, operator
+    rebuilds and the time per solve."""
     import numpy as np
+    import torch
 
     from fcc_qp_tpu_torch import FCCQPOptions, solve_batched_fast
+    from fcc_qp_tpu_torch.core.batched import fast_stages
     from fcc_qp_tpu_torch.models.osc import CASSIE
+    from fcc_qp_tpu_torch.ops.kkt import admm_operator
     from fcc_qp_tpu_torch.utils.io import to_qpbatch
 
     qpb = to_qpbatch(stacked)
     launches, out = {}, {}
     for tag, o in (("adaptive", FAST_OPTS), ("alpha", FAST_ALPHA_OPTS)):
         opts = FCCQPOptions(**o)
-        sol, launches[tag], walls, stages = timed_solves(
-            lambda st_: solve_batched_fast(qpb, CASSIE.shape, opts,
-                                           stage_times=st_))
+        rho = torch.full((B,), opts.rho, dtype=torch.float64, device="cuda")
+        sol, launches[tag], rep = captured_path(
+            f"fast:{tag}", fast_stages(CASSIE.shape, opts), qpb,
+            lambda g: solve_batched_fast(qpb, CASSIE.shape, opts, graphs=g),
+            "admm_chunk_full_warp<double",
+            rebuild=lambda: admm_operator(qpb.Q, qpb.b, qpb.A_eq, qpb.b_eq,
+                                          rho, static=True))
+        stages = {}
+        solve_batched_fast(qpb, CASSIE.shape, opts, stage_times=stages)
         share, s512 = share_check(f"fast:{tag}", sol,
                                   FAST_JAX_SHARE_512[tag], first=512)
         n = sol.details.n_iter.cpu().numpy()
-        wall = sorted(walls)[1]
+        wall = rep["replay_median_s"]
         out[tag] = dict(share=share, share_512=s512, wall_s=wall,
-                        n_refactor=stages.get("n_refactor", 0))
+                        n_refactor=stages.get("n_refactor", 0), graphs=rep)
         log(f"[fast:{tag}] solve_batched_fast " + json.dumps(o)
             + f", Cassie B={B}: kSuccess {share:.4%}, on the first 512 "
             f"{s512:.4%} (the JAX package there: "
             f"{FAST_JAX_SHARE_512[tag]:.4%}); n_iter p50 "
             f"{np.median(n):.0f}, max {n.max()}; operator rebuilds "
-            f"{out[tag]['n_refactor']}; median wall {wall:.6f} s "
-            f"({B / wall:.1f} solves/s); stage seconds " + json.dumps(stages)
-            + "; launches " + json.dumps(launches[tag]))
+            f"{out[tag]['n_refactor']}, one rebuild body "
+            f"{rep['rebuild_body']['ms']:.6f} ms of device time; median wall "
+            f"{wall:.6f} s captured ({B / wall:.1f} solves/s), eager "
+            f"{rep['eager_median_s']:.6f} s; staged (uncaptured) stage "
+            "seconds " + json.dumps(stages) + "; launches (capture) "
+            + json.dumps(launches[tag]))
         check(out[tag]["n_refactor"] >= 1, f"fast:{tag}: rho never adapted")
         check(launches[tag]["admm_chunk_full_f64"] > 0,
               f"fast:{tag}: admm_chunk_full_f64 was not launched")
@@ -1751,23 +1801,27 @@ def fast_phase(stacked):
 
 def f32_phase(stacked, solver_mod):
     """Phase 14: the parity engine on f32 data (bench.py --engine f32) at
-    B = 8192, counted from zero, held to the JAX f32 engine's share less
-    1%; then the f32 full-layout kernel against its plain version bit for
-    bit on the solve's one launch (every instance from its start to its
-    stop)."""
+    B = 8192, captured (`captured_path`), held to the JAX f32 engine's
+    share less 1%; then the f32 full-layout kernel against its plain
+    version bit for bit on an uncaptured solve's one launch (every
+    instance from its start to its stop)."""
     import numpy as np
 
     import torch
 
     from fcc_qp_tpu_torch import FCCQPOptions, solve_batched
+    from fcc_qp_tpu_torch.core.solver import parity_stages
     from fcc_qp_tpu_torch.models.osc import CASSIE
     from fcc_qp_tpu_torch.ops import pallas_admm
     from fcc_qp_tpu_torch.utils.io import to_qpbatch
 
     q32 = to_qpbatch(stacked, dtype=torch.float32)
     opts = FCCQPOptions(**F32_OPTS)
-    sol, launches, walls, _ = timed_solves(
-        lambda _st: solve_batched(q32, CASSIE.shape, opts))
+    sol, launches, rep = captured_path(
+        "f32", parity_stages(CASSIE.shape, opts, torch.float32), q32,
+        lambda g: solve_batched(q32, CASSIE.shape, opts, graphs=g),
+        "admm_chunk_full_warp<float")
+    walls = rep["replay_walls"]
     check(sol.z.dtype == torch.float32, "f32 engine: z is not f32")
     share, _ = share_check("f32", sol, F32_JAX_SHARE_8192, residual=False)
     d = sol.details
@@ -1783,7 +1837,8 @@ def f32_phase(stacked, solver_mod):
         + f", Cassie B={B}: kSuccess {share:.4%} (the JAX f32 engine on "
         f"the same {B}: {F32_JAX_SHARE_8192:.4%}); n_iter p50 "
         f"{np.median(n):.0f}, max {n.max()}; median wall {wall:.6f} s "
-        f"({B / wall:.1f} solves/s); factorization_time "
+        f"captured ({B / wall:.1f} solves/s), eager "
+        f"{rep['eager_median_s']:.6f} s; factorization_time "
         f"{float(d.factorization_time[0]):.6f} s; launches "
         + json.dumps(launches))
     check(launches["admm_chunk_full_f32"] > 0,
@@ -1791,14 +1846,14 @@ def f32_phase(stacked, solver_mod):
     check(launches["admm_chunk_full_f64"] == 0,
           "f32 engine: the f64 full-layout kernel ran on f32 data")
     _, rec = recorded_full(solver_mod, lambda: solve_batched(
-        q32, CASSIE.shape, opts), name="admm_chunk_full_f32")
+        q32, CASSIE.shape, opts, graphs=False), name="admm_chunk_full_f32")
     k, p = pallas_admm.admm_chunk_full_f32, pallas_admm.admm_chunk_full_f32_plain
     check(rec.first is rec.last, "the f32 engine launched its kernel more "
           "than once in a solve")
     # the plain version of this launch takes seconds: timed once
     first = compare_full("f32_one_launch", k, p, *rec.first, plain_reps=1)
     check(first["active"] == B, "the f32 engine's launch is not all active")
-    return launches, first, dict(share=share, wall_s=wall)
+    return launches, first, dict(share=share, wall_s=wall, graphs=rep)
 
 
 # CUgraphNodeType (cuda.h)
@@ -1939,7 +1994,8 @@ def captured_cold_phase(engine, qp, bench):
     first_call = time.perf_counter() - t0
     launches = counts()
     peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
-    cap = captured_batch(shape, bench, ci, qp.batch, "cuda")
+    cap = captured_batch(engine.reduced_stages(shape, bench, ci), qp.batch,
+                         "cuda")
     check(False in cap._captured, "bench: the solve was not captured")
     rep = capture_report(cap, False)
     walls, _ = timed_walls(lambda: solve_batched_ds(qp, shape, bench))
@@ -1947,7 +2003,8 @@ def captured_cold_phase(engine, qp, bench):
     check_same_solution("bench: a later replay", again, sol)
     eager_walls, (eager, _) = timed_walls(
         lambda: solve_batched_ds(qp, shape, bench, graphs=False))
-    static = CapturedBatch(shape, bench, ci, qp.batch, "cuda", graphs=False)
+    static = CapturedBatch(engine.reduced_stages(shape, bench, ci), qp.batch,
+                           "cuda", graphs=False)
     static.load(qp)
     t0 = time.perf_counter()
     static.run(False)
@@ -1973,6 +2030,155 @@ def captured_cold_phase(engine, qp, bench):
         f"eager solve, |dz| {dz:.3e}, n_iter differs on {dn}; exhausted "
         "flag clear; capture " + json.dumps(rep))
     return sol, launches, walls, rep
+
+
+def body_graph_ms(fn, reps=5):
+    """One call of ``fn`` (a rebuild: the body of a captured path's IF
+    node) captured as a CUDA graph of its own under cuSOLVER, its IF
+    nodes included: the device milliseconds of one replay (median of
+    ``reps``, CUDA events) and its kernel and IF nodes."""
+    import torch
+
+    from fcc_qp_tpu_torch.core.graphs import _cusolver
+    from fcc_qp_tpu_torch.ops.device_branch import body_graphs, forget_owned
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with _cusolver(), torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    n0 = len(body_graphs)
+    with _cusolver(), torch.cuda.graph(g):
+        out = fn()
+    forget_owned()
+    nodes = graph_nodes_total([g.raw_cuda_graph()] + body_graphs[n0:])
+    g.instantiate()
+    ms = []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        g.replay()
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    del out, g
+    return dict(ms=sorted(ms[1:])[reps // 2],
+                kernel_nodes=nodes and nodes.get("kernel", 0),
+                if_nodes=nodes and nodes.get("conditional", 0))
+
+
+def profiled_host_reads(run, inst):
+    """``run()`` once under `torch.profiler`: its host reads
+    (``aten::_local_scalar_dense``) and the kernels in its trace whose
+    name holds ``inst``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = prof.events()
+    return dict(host_reads=sum(e.name == "aten::_local_scalar_dense"
+                               for e in ev if e.device_type != cuda),
+                traced_kernels=sum(inst in e.name for e in ev
+                                   if e.device_type == cuda))
+
+
+def captured_path(tag, stages, qp, solve, inst, rebuild=None):
+    """The checks of a path that the entry point captures at its first
+    call on the card (`core.graphs.solve_captured`): ``solve(graphs)``
+    calls the entry point on ``qp`` (``graphs=None``: the capture,
+    ``False``: the eager, reading path). Counted from zero over the
+    capturing call (a wrapper counts while the graphs are captured); the
+    capture's seconds, nodes by type (IF bodies included, IF nodes
+    counted), hand kernels per graph and peak memory; three timed
+    replays (a later one equal to the first bit for bit) beside three
+    eager solves in the same call; the uncaptured static solve under
+    cuSOLVER (`CapturedBatch` with graphs off) held bit for bit, the
+    eager solve by statuses and n_iter equal and |dz| <= 1e-9; no static
+    loop ends with work pending; one profiled call of the captured entry
+    point with no host read and the path's full-layout kernel ``inst``
+    in its trace; ``rebuild()``, where given, the adaptive-rho rebuild
+    that the graphs hold in IF bodies, timed as a graph of its own
+    (`body_graph_ms`). Returns ``(solution, launches, report)``."""
+    import torch
+
+    from fcc_qp_tpu_torch.core.graphs import (CapturedBatch, _batch,
+                                              captured_batch)
+    from fcc_qp_tpu_torch.ops import device_branch
+
+    flag = device_branch.exhausted_flag("cuda")
+    flag.fill_(False)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sol, _ = solve(None)
+    torch.cuda.synchronize()
+    first_call = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    Bq = _batch(qp)
+    cap = captured_batch(stages, Bq, "cuda")
+    check(False in cap._captured, f"{tag}: the solve was not captured")
+    rep = capture_report(cap, False)
+    walls, _ = timed_walls(lambda: solve(None))
+    again, _ = solve(None)
+    check_same_solution(f"{tag}: a later replay", again, sol)
+    eager_walls, (eager, _) = timed_walls(lambda: solve(False))
+    static = CapturedBatch(stages, Bq, "cuda", graphs=False)
+    static.load(qp)
+    t0 = time.perf_counter()
+    static.run(False)
+    torch.cuda.synchronize()
+    static_wall = time.perf_counter() - t0
+    check(not bool(flag), f"{tag}: a static loop ended with work pending")
+    check_same_solution(f"{tag}: graph replay vs the uncaptured static "
+                        "solve", sol, static.out)
+    dz, dn = check_like_eager(f"{tag}: graph replay", sol, eager)
+    check(dn == 0, f"{tag}: n_iter differs from the eager solve on {dn} "
+          "instances")
+    prof = profiled_host_reads(lambda: solve(None), inst)
+    check(prof["host_reads"] == 0, f"{tag}: {prof['host_reads']} host reads "
+          "in a captured call")
+    check(prof["traced_kernels"] > 0, f"{tag}: no {inst} kernel in the "
+          "trace of a captured call")
+    rep.update(first_call_s=first_call, peak_allocated_gb=peak_gb,
+               replay_walls=walls, replay_median_s=sorted(walls)[1],
+               eager_walls=eager_walls, eager_median_s=sorted(eager_walls)[1],
+               static_wall_s=static_wall, max_dz_to_eager=dz,
+               bit_equal_to_eager=_same_bits(sol, eager),
+               solve_time_s=float(sol.details.solve_time[0]),
+               factorization_time_s=float(sol.details.factorization_time[0]),
+               profiled=prof)
+    if rebuild is not None:
+        rep["rebuild_body"] = body_graph_ms(rebuild)
+    log(f"[{tag}:graphs] B={Bq} captured at the first call "
+        f"({first_call:.3f} s, peak {peak_gb:.3f} GB allocated); replay "
+        f"median {rep['replay_median_s']:.6f} s against the eager path's "
+        f"{rep['eager_median_s']:.6f} s (same call); bit for bit the "
+        f"uncaptured static solve ({static_wall:.3f} s); the eager solve's "
+        f"statuses and n_iter, |dz| {dz:.3e}; a captured call profiled: "
+        f"{prof['host_reads']} host reads, {prof['traced_kernels']} {inst} "
+        "kernels traced; capture " + json.dumps(rep))
+    return sol, launches, rep
+
+
+def _same_bits(got, want):
+    """Whether z and every diagnostic but the two times are equal."""
+    import dataclasses
+
+    import torch
+
+    return torch.equal(got.z, want.z) and all(
+        torch.equal(getattr(got.details, f.name),
+                    getattr(want.details, f.name))
+        for f in dataclasses.fields(want.details)
+        if f.name not in TIME_FIELDS)
 
 
 def capture_census(engine, opts, qp):
@@ -2122,7 +2328,7 @@ def profile_submits(server, seq, engine):
 
 
 def serving_phase():
-    """Phase 15: `FCCQPServer` over a 64-step walking log at depth 1, 2, 4
+    """Phase 16: `FCCQPServer` over a 64-step walking log at depth 1, 2, 4
     and 8 on both engines, replaying its captured graphs: each run equal
     to the serial `FCCQP` loop (statuses equal, |dz| <= 1e-9 on ds,
     <= 1e-8 on f64: the JAX package's server bars) and both bit for bit
@@ -2267,18 +2473,223 @@ def serving_phase():
     return launches, table, traces, census
 
 
+def _stacked_steps(sols, single):
+    """Per-step solutions (each batch-leading) stacked over time as
+    `replay` stacks them (the batch axis dropped for a single
+    sequence)."""
+    import dataclasses
+
+    import torch
+
+    from fcc_qp_tpu_torch.types import FCCQPDetails, FCCQPSolution
+
+    pick = (lambda a: a[0]) if single else (lambda a: a)
+    det = FCCQPDetails(**{
+        f.name: torch.stack([pick(getattr(s.details, f.name)) for s in sols])
+        for f in dataclasses.fields(FCCQPDetails)})
+    return FCCQPSolution(details=det,
+                         z=torch.stack([pick(s.z) for s in sols]))
+
+
+def parity_replay_phase(walking):
+    """Phase 15: the parity engine's `replay` on the card, captured (the
+    JAX package's ``lax.scan``: the cold graphs at step 0, the warm graphs
+    replayed at every later step, the warm state in static buffers), over
+    the drop-in's 200-step walking log at B = 1 (`DROPIN_OPTS`) and over
+    `PARITY_REPLAY_STREAMS` streams x `PARITY_REPLAY_STEPS` steps of the
+    bench's walking log (`PARITY_REPLAY_OPTS`). For each, counted from
+    zero over the capturing replay: both captures' seconds, nodes and
+    hand kernels per graph, peak memory; three timed replays (a later one
+    bit for bit the first) beside three eager replays in the same call;
+    the uncaptured static chain under cuSOLVER held bit for bit, the eager
+    replay by statuses and n_iter equal and |dz| <= 1e-9; one profiled
+    replay with no host read and `admm_chunk_full_f64` in its trace.
+    Returns ``(launches per log, report)``."""
+    import numpy as np
+    import torch
+
+    from fcc_qp_tpu_torch import FCCQPOptions, QPBatch, replay
+    from fcc_qp_tpu_torch.core.graphs import CapturedBatch, captured_batch
+    from fcc_qp_tpu_torch.core.solver import parity_stages
+    from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_sequence
+    from fcc_qp_tpu_torch.utils.io import stack_qp_dicts, to_qpbatch
+
+    shape = CASSIE.shape
+    S, T = PARITY_REPLAY_STREAMS, PARITY_REPLAY_STEPS
+    # stream s owns global steps [s T, (s + 1) T): time first, then streams
+    streams = {k: np.ascontiguousarray(np.swapaxes(
+        v[:S * T].reshape(S, T, *v.shape[1:]), 0, 1))
+        for k, v in walking.items()}
+    logs = (("b1", to_qpbatch(stack_qp_dicts(generate_osc_sequence(
+                CASSIE, DROPIN_STEPS, seed=0))), DROPIN_OPTS),
+            ("streams", to_qpbatch(streams), PARITY_REPLAY_OPTS))
+    launches, report = {}, {}
+    for tag, log_qp, o in logs:
+        opts = FCCQPOptions(**o)
+        single = log_qp.b.dim() == 2
+        Bq = 1 if single else log_qp.b.shape[1]
+        steps = log_qp.b.shape[0]
+        stages = parity_stages(shape, opts)
+        run = lambda graphs=None: replay(log_qp, shape, opts, graphs=graphs)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sol, _ = run()
+        torch.cuda.synchronize()
+        first_call = time.perf_counter() - t0
+        launches[tag] = counts()
+        peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+        cap = captured_batch(stages, Bq, "cuda")
+        check(False in cap._captured and True in cap._captured,
+              f"replay:{tag}: the cold and warm solves were not captured")
+        rep = {w: capture_report(cap, k) for w, k in (("cold", False),
+                                                      ("warm", True))}
+        walls, _ = timed_walls(run)
+        again, _ = run()
+        check_same_solution(f"replay:{tag}: a later replay", again, sol)
+        eager_walls, (eager, _) = timed_walls(lambda: run(False))
+        static = CapturedBatch(stages, Bq, "cuda", graphs=False)
+        outs = []
+        t0 = time.perf_counter()
+        for t in range(steps):
+            step = QPBatch(*(a[t][None] if single else a[t]
+                             for a in log_qp.__dict__.values()))
+            static.load(step)
+            static.run(t > 0)
+            outs.append(static.result()[0])
+        torch.cuda.synchronize()
+        static_wall = time.perf_counter() - t0
+        check_same_solution(f"replay:{tag}: graph replays vs the "
+                            "uncaptured static chain", sol,
+                            _stacked_steps(outs, single))
+        dz, dn = check_like_eager(f"replay:{tag}: graph replays", sol, eager)
+        check(dn == 0, f"replay:{tag}: n_iter differs from the eager replay "
+              f"on {dn} steps")
+        prof = profiled_host_reads(run, "admm_chunk_full_warp<double")
+        check(prof["host_reads"] == 0, f"replay:{tag}: "
+              f"{prof['host_reads']} host reads in a captured replay")
+        check(prof["traced_kernels"] > 0, f"replay:{tag}: no "
+              "admm_chunk_full_f64 kernel in a captured replay's trace")
+        check(launches[tag]["admm_chunk_full_f64"] > 0, f"replay:{tag}: "
+              "admm_chunk_full_f64 was not launched")
+        st = sol.details.solve_status.cpu().numpy()
+        check((st != 2).all(), f"replay:{tag}: kFactorizationFailed")
+        check(np.isfinite(sol.z.cpu().numpy()).all(),
+              f"replay:{tag}: z not finite")
+        rep.update(B=Bq, steps=steps, first_call_s=first_call,
+                   peak_allocated_gb=peak_gb, replay_walls=walls,
+                   replay_median_s=sorted(walls)[1], eager_walls=eager_walls,
+                   eager_median_s=sorted(eager_walls)[1],
+                   static_wall_s=static_wall, max_dz_to_eager=dz,
+                   bit_equal_to_eager=_same_bits(sol, eager),
+                   kSuccess=int((st == 0).sum()), profiled=prof)
+        report[tag] = rep
+        log(f"[replay:{tag}] parity replay, B={Bq} x {steps} steps "
+            + json.dumps(o) + f": kSuccess {(st == 0).sum()} of {st.size}; "
+            f"captured at the first replay ({first_call:.3f} s, peak "
+            f"{peak_gb:.3f} GB); replay median {rep['replay_median_s']:.6f} "
+            f"s against the eager replay's {rep['eager_median_s']:.6f} s "
+            f"(same call); bit for bit the uncaptured static chain "
+            f"({static_wall:.3f} s); the eager replay's statuses and n_iter, "
+            f"|dz| {dz:.3e}; a captured replay profiled: "
+            f"{prof['host_reads']} host reads, {prof['traced_kernels']} "
+            "admm_chunk_full_f64 kernels traced; captures "
+            + json.dumps(rep))
+    return launches, report
+
+
+def sharded_captured(kind, stages, qp, sharded, eager_solve, inst):
+    """The captured checks of a two-shard solve on the one card at B =
+    8192 (`sharded()`; its shards of 4096 share one capture, which its
+    first call makes): counted from zero over the capturing call; the
+    capture's seconds, nodes, hand kernels per graph and peak memory;
+    three timed sharded calls beside three eager unsharded solves
+    (``eager_solve()``) in the same call; each shard's uncaptured static
+    solve under cuSOLVER held bit for bit, the eager solve by statuses
+    and n_iter equal and |dz| <= 1e-9; one profiled sharded call with no
+    host read and the full-layout kernel ``inst`` in its trace. Returns
+    ``(launches, report)``."""
+    import torch
+
+    from fcc_qp_tpu_torch.core.ds_engine import QPBatchDS
+    from fcc_qp_tpu_torch.core.graphs import CapturedBatch, captured_batch
+    from fcc_qp_tpu_torch.types import FCCQPDetails, FCCQPSolution
+
+    tag = f"sharded:{kind}"
+    half = B // 2
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sol, _, _ = sharded()
+    torch.cuda.synchronize()
+    first_call = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    cap = captured_batch(stages, half, "cuda")
+    check(False in cap._captured, f"{tag}: the shards were not captured")
+    rep = capture_report(cap, False)
+    walls, _ = timed_walls(sharded)
+    eager_walls, (eager, _) = timed_walls(eager_solve)
+    static = CapturedBatch(stages, half, "cuda", graphs=False)
+    outs = []
+    for lo in (0, half):
+        if isinstance(qp, QPBatchDS):
+            static.load(QPBatchDS(*(a[..., lo:lo + half] for a in qp)))
+        else:
+            static.load(type(qp)(*(a[lo:lo + half]
+                                   for a in qp.__dict__.values())))
+        static.run(False)
+        outs.append(static.result()[0])
+    cat = lambda *a: torch.cat(a, dim=0)
+    both = FCCQPSolution(details=FCCQPDetails(**{
+        k: cat(*(getattr(o.details, k) for o in outs))
+        for k in FCCQPDetails.__dataclass_fields__}),
+        z=cat(*(o.z for o in outs)))
+    check_same_solution(f"{tag}: the shards' replays vs their uncaptured "
+                        "static solves", sol, both)
+    dz, dn = check_like_eager(f"{tag}: the shards' replays", sol, eager)
+    check(dn == 0, f"{tag}: n_iter differs from the eager solve on {dn}")
+    prof = profiled_host_reads(sharded, inst)
+    check(prof["host_reads"] == 0, f"{tag}: {prof['host_reads']} host reads "
+          "in a captured sharded call")
+    check(prof["traced_kernels"] > 0, f"{tag}: no {inst} kernel in the "
+          "trace of a captured sharded call")
+    rep.update(first_call_s=first_call, peak_allocated_gb=peak_gb,
+               replay_walls=walls, replay_median_s=sorted(walls)[1],
+               eager_walls=eager_walls, eager_median_s=sorted(eager_walls)[1],
+               max_dz_to_eager=dz, bit_equal_to_eager=_same_bits(sol, eager),
+               profiled=prof)
+    log(f"[{tag}:graphs] two shards of {half} on the one card, captured at "
+        f"the first call ({first_call:.3f} s, peak {peak_gb:.3f} GB); "
+        f"sharded median {rep['replay_median_s']:.6f} s against the eager "
+        f"unsharded solve's {rep['eager_median_s']:.6f} s (same call); each "
+        "shard bit for bit its uncaptured static solve; the eager solve's "
+        f"statuses and n_iter, |dz| {dz:.3e}; a sharded call profiled: "
+        f"{prof['host_reads']} host reads, {prof['traced_kernels']} {inst} "
+        "kernels traced; capture " + json.dumps(rep))
+    return launches, rep
+
+
 def sharded_phase(stacked, walking, bench, dev=None):
-    """Phase 16: `solve_batched_ds_sharded` and `solve_batched_sharded`
-    (the f64 parity engine) at `SHARD_OPTS`, over [cuda:0] and over two
-    shards on the one card, at B = 8192 and B = 8191: each equal to the
-    unsharded solve (n_iter and statuses equal; |dz| <= 1e-8 on ds,
-    <= 1e-10 on f64) with equal summary aggregates; then the weak-scaling
-    sweep (`parallel.scaling_bench`) over one and two shards at the bench
+    """Phase 17: `solve_batched_ds_sharded` and `solve_batched_sharded`
+    (the f64 parity engine) at `SHARD_OPTS`, each shard replaying its
+    engine's capture: first the captured checks of two shards on the one
+    card at B = 8192 (`sharded_captured`), then over [cuda:0] and over two
+    shards at B = 8192 and B = 8191: each equal to the unsharded solve
+    (n_iter and statuses equal; |dz| <= 1e-8 on ds, <= 1e-10 on f64) with
+    equal summary aggregates; then the weak-scaling sweep
+    (`parallel.scaling_bench`) over one and two shards at the bench
     flags."""
     import torch
 
     from fcc_qp_tpu_torch import (FCCQPOptions, solve_batched,
                                   solve_batched_ds, to_ds_batch)
+    from fcc_qp_tpu_torch.core.ds_engine import full_stages
+    from fcc_qp_tpu_torch.core.solver import parity_stages
     from fcc_qp_tpu_torch.models.osc import CASSIE
     from fcc_qp_tpu_torch.parallel import (solve_batched_ds_sharded,
                                            solve_batched_sharded, summarize)
@@ -2288,7 +2699,21 @@ def sharded_phase(stacked, walking, bench, dev=None):
     shape = CASSIE.shape
     cuda0 = torch.device("cuda", 0) if dev is None else torch.device(dev)
     opts = FCCQPOptions(**SHARD_OPTS)
-    launches, times = {}, {}
+    launches, times, graphs = {}, {}, {}
+    qds, qpb = to_ds_batch(stacked), to_qpbatch(stacked)
+    two = [cuda0, cuda0]
+    for kind, stages, qp, sharded, eager_solve, inst in (
+            ("ds", full_stages(shape, opts), qds,
+             lambda: solve_batched_ds_sharded(qds, shape, opts, mesh=two),
+             lambda: solve_batched_ds(qds, shape, opts, graphs=False),
+             "admm_chunk_full_warp<double"),
+            ("f64", parity_stages(shape, opts), qpb,
+             lambda: solve_batched_sharded(qpb, shape, opts, mesh=two),
+             lambda: solve_batched(qpb, shape, opts, graphs=False),
+             "admm_chunk_full_warp<double")):
+        launches[f"{kind}_captured"], graphs[kind] = sharded_captured(
+            kind, stages, qp, sharded, eager_solve, inst)
+    del qds, qpb
     q = lambda t: t.cpu().numpy()
     for Bn in (B, B - 1):
         sub = {k: v[:Bn] for k, v in stacked.items()}
@@ -2343,7 +2768,7 @@ def sharded_phase(stacked, walking, bench, dev=None):
     log("[sharded] weak scaling over one and two shards on the one card "
         f"(per-shard batch {sweep['per_device_batch']}): "
         + json.dumps(sweep["results"]))
-    return launches, times, sweep
+    return launches, times, sweep, graphs
 
 
 def main() -> int:
@@ -2564,7 +2989,7 @@ def main() -> int:
     import fcc_qp_tpu_torch.core.solver as solver_mod
     from fcc_qp_tpu_torch.models.osc import QUADRUPED
 
-    launches_full, rec_full, full_device = full_phase(engine)
+    launches_full, rec_full, full_device, full_graphs = full_phase(engine)
     launches_dropin, rec_dropin, rec_dropin_ds, dropin_table = dropin_phase(
         solver_mod)
     for r in records:
@@ -2607,7 +3032,8 @@ def main() -> int:
     check(QUADRUPED.shape.lambda_c_start % 32 in (30, 31),
           "the quadruped's cone segment does not straddle the row slots")
     _, rec_q = recorded_full(engine, lambda: solve_batched_ds(
-        qqp, QUADRUPED.shape, FCCQPOptions(**dict(FULL_OPTS, max_iter=200))))
+        qqp, QUADRUPED.shape, FCCQPOptions(**dict(FULL_OPTS, max_iter=200)),
+        graphs=False))
     straddle = compare_full("quadruped_straddle", full_k, full_p,
                             *rec_q.first, time_it=False)
     # row counts that are no model's, at every slot count: random
@@ -2618,7 +3044,8 @@ def main() -> int:
         gshape = ProblemShape(*dims)
         gqp = to_ds_batch(random_batch(*dims, 256, seed=dims[0]))
         _, rec_g = recorded_full(engine, lambda: solve_batched_ds(
-            gqp, gshape, FCCQPOptions(**dict(FULL_OPTS, max_iter=200))))
+            gqp, gshape, FCCQPOptions(**dict(FULL_OPTS, max_iter=200)),
+            graphs=False))
         case = f"n{dims[0]}_nc{dims[2]}"
         for which in ("first", "last"):
             g = compare_full(f"generic_{case}_{which}", full_k, full_p,
@@ -2697,8 +3124,8 @@ def main() -> int:
                    if k.startswith("admm_chunk_full_warp<double")},
     ))
 
-    # 10-16. this slice's paths: host IO, over-relaxation, adaptive rho on
-    # the reduced path, the batch-level engine, the f32 parity engine,
+    # 10-17. host IO, over-relaxation, adaptive rho on the reduced path,
+    # the batch-level engine, the f32 parity engine, the parity replay,
     # serving and the sharded solves; each path counted from zero
     full_rec = records[2]
     io_rec = io_phase(log_stacked, replay_warm)
@@ -2708,9 +3135,10 @@ def main() -> int:
     launches_fast, fast_out = fast_phase(stacked)
     launches_f32, f32_first, f32_out = f32_phase(stacked,
                                                            solver_mod)
+    launches_preplay, preplay = parity_replay_phase(log_stacked)
     launches_serve, serve_table, serve_traces, census = serving_phase()
-    launches_shard, shard_times, sweep = sharded_phase(stacked, log_stacked,
-                                                       bench)
+    launches_shard, shard_times, sweep, shard_graphs = sharded_phase(
+        stacked, log_stacked, bench)
     def per_replay(name, graphs="warm"):
         """The kernel's launches in one replay of each engine's warm (or
         cold) graphs, counted under capture (`capture_census`)."""
@@ -2723,6 +3151,7 @@ def main() -> int:
             adaptive=launches_adapt[nm],
             fast=sum(v[nm] for v in launches_fast.values()),
             f32=launches_f32[nm],
+            parity_replay=sum(v[nm] for v in launches_preplay.values()),
             serving=sum(v[nm] for v in launches_serve.values()),
             sharded=sum(v[nm] for v in launches_shard.values()))
         for path, n in paths.items():
@@ -2730,6 +3159,20 @@ def main() -> int:
         r["launches"] += sum(paths.values())
         r["launches_per_replay"] = per_replay(nm)
         r["launches_per_replay_cold"] = per_replay(nm, "cold")
+    # the full-layout kernels' launches in one replay of each captured
+    # graph pair of a full-layout engine, counted under capture
+    per_graph = lambda rep, nm: rep["launches"][nm]
+    full_rec.update(
+        launches_per_full_graph=per_graph(full_graphs, "admm_chunk_full_f64"),
+        launches_per_fast_graph={
+            k: per_graph(v["graphs"], "admm_chunk_full_f64")
+            for k, v in fast_out.items()},
+        launches_per_parity_replay={
+            k: {w: per_graph(v[w], "admm_chunk_full_f64")
+                for w in ("cold", "warm")} for k, v in preplay.items()},
+        launches_per_shard_graph={
+            k: per_graph(v, "admm_chunk_full_f64")
+            for k, v in shard_graphs.items()})
     full_rec.update(
         ms_alpha=full_alpha["ms"], plain_ms_alpha=full_alpha["plain_ms"],
         bound_ms_alpha=full_alpha["bound_ms"],
@@ -2740,6 +3183,8 @@ def main() -> int:
         adaptive=launches_adapt["admm_chunk_full_f32"],
         fast=sum(v["admm_chunk_full_f32"] for v in launches_fast.values()),
         f32=launches_f32["admm_chunk_full_f32"],
+        parity_replay=sum(v["admm_chunk_full_f32"]
+                          for v in launches_preplay.values()),
         serving=sum(v["admm_chunk_full_f32"] for v in launches_serve.values()),
         sharded=sum(v["admm_chunk_full_f32"]
                     for v in launches_shard.values()))
@@ -2754,6 +3199,8 @@ def main() -> int:
         bound_by=f32_first["bound_by"], library_ms=None,
         launches_per_replay=per_replay("admm_chunk_full_f32"),
         launches_per_replay_cold=per_replay("admm_chunk_full_f32", "cold"),
+        launches_per_f32_graph=f32_out["graphs"]["launches"][
+            "admm_chunk_full_f32"],
         blocks_per_sm={n: pallas_admm.blocks_per_sm("admm_chunk_full_f32", n)
                        for n in (24, 42, 60, 76, 90)},
         registers={k: v[0] for k, v in ptxas.items()
@@ -2767,12 +3214,20 @@ def main() -> int:
         f"{B}; phase 5, the replay's step 0 and warm steps at S = "
         f"{REPLAY_S}): " + json.dumps(dict(cold=bench_graphs,
                                            replay=replay_graphs)))
-    log("[slice] this slice's paths: " + json.dumps(dict(
+    log("[slice] the option and module paths: " + json.dumps(dict(
         io=io_rec, alpha_shares=alpha_shares, adaptive_share=adapt_share,
         fast=fast_out, f32=f32_out, sharded_walls=shard_times,
         scaling=sweep["results"])))
+    log("[graphs:engines] the captured full-layout engines (phase 6, the "
+        "full engine at B = 8192; phase 13, solve_batched_fast; phase 14, "
+        "the parity engine on f32 data; phase 15, the parity replay; phase "
+        "17, two shards of 4096): " + json.dumps(dict(
+            full=full_graphs, fast={k: v["graphs"] for k, v in
+                                    fast_out.items()},
+            f32=f32_out["graphs"], parity_replay=preplay,
+            sharded=shard_graphs)))
 
-    # 17. result lines
+    # 18. result lines
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,28 @@ launched inside a body, equal to its launch outside one.
 
 captures each library factorization of one instance (and of two) into
 an IF body alone and prints whether its graph instantiates.
+
+    python3 exp_graph_probe.py alloc
+
+captures each linear-algebra call of the parity engine's presolve
+(`ops.kkt.kkt_solve`: the library's `cholesky_solve`, with one and with
+m right-hand sides, against the batched triangular solves that replace
+it, `ops.ds_linalg.chol_solve`; `cholesky_ex`; a product) at B = 1, 2
+and 1024 into a graph of its own, under cuSOLVER, and prints its nodes
+by type: memory alloc / free nodes (types 10 / 11) cannot stand in a
+conditional body. Then `kkt_solve` itself, static, at B = 1 and 1024:
+its graph's nodes and whether it instantiates.
+
+    python3 exp_graph_probe.py census <root>
+
+imports `fcc_qp_tpu_torch` from the checkout at ``<root>`` (a parent
+tree, say) and captures the parity engine's cold B = 1 solve as `FCCQP`
+does (`core.graphs.CapturedSolve`: a warm-up on a side stream, then the
+operator and iteration graphs): their nodes by type, IF bodies
+included. Where that tree's `ops.kkt` still solves with the library's
+`cholesky_solve` (``_cho_solve``), the same again with only that call
+replaced by two batched triangular solves, then once more as it is:
+whether that call puts the memory alloc / free nodes in the graph.
 """
 
 from __future__ import annotations
@@ -63,7 +85,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ".")
+    census_mode = sys.argv[1:2] == ["census"]
+    sys.path.insert(0, sys.argv[2] if census_mode else ".")
     from fcc_qp_tpu_torch.core.graphs import _cusolver
     from fcc_qp_tpu_torch.ops import device_branch as db
 
@@ -79,6 +102,10 @@ def main() -> int:
     G = torch.cuda.CUDAGraph
     if sys.argv[1:] == ["b1"]:
         return b1_ops(dev)
+    if sys.argv[1:] == ["alloc"]:
+        return alloc_ops(dev)
+    if census_mode:
+        return census_f64(dev)
 
     # 1. IF nodes, nested, writing in place into a buffer made before them
     flag_a = torch.zeros((), dtype=torch.bool, device=dev)
@@ -295,6 +322,147 @@ def b1_ops(dev) -> int:
                     out("b1_op", B=Bn, name=name, ok=False,
                         error=str(e).splitlines()[0])
                     torch.cuda.synchronize()
+    print(json.dumps({"ok": True}))
+    return 0
+
+
+def alloc_ops(dev) -> int:
+    """``python3 exp_graph_probe.py alloc`` (the module docstring)."""
+    import torch
+
+    from fcc_qp_tpu_torch.core.graphs import _cusolver
+    from fcc_qp_tpu_torch.ops import device_branch as db
+    from fcc_qp_tpu_torch.ops import kkt
+    from fcc_qp_tpu_torch.ops.ds_linalg import chol_solve
+
+    f64 = torch.float64
+    n, m = 60, 38
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def captured(name, Bn, fn):
+        with _cusolver():
+            fn()
+            torch.cuda.synchronize()
+            db.body_graphs.clear()
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            try:
+                with torch.cuda.graph(g):
+                    fn()
+                db.forget_owned()
+                nodes = census(g.raw_cuda_graph())
+                g.instantiate()
+                g.replay()
+                torch.cuda.synchronize()
+                out("alloc_op", B=Bn, name=name, ok=True, nodes=nodes,
+                    mem_alloc=nodes.get("10", 0), mem_free=nodes.get("11", 0))
+            except Exception as e:  # report every op, then go on
+                out("alloc_op", B=Bn, name=name, ok=False,
+                    error=str(e).splitlines()[0])
+                torch.cuda.synchronize()
+
+    for Bn in (1, 2, 1024):
+        H = torch.randn(Bn, n, n, generator=gen, dtype=f64).to(dev)
+        H = H @ H.transpose(1, 2) + n * torch.eye(n, device=dev, dtype=f64)
+        A = torch.randn(Bn, m, n, generator=gen, dtype=f64).to(dev)
+        L = torch.linalg.cholesky(H)
+        r1 = torch.randn(Bn, n, 1, generator=gen, dtype=f64).to(dev)
+        At = A.transpose(1, 2)
+        ops = {
+            "cholesky_ex": lambda: torch.linalg.cholesky_ex(H),
+            "cholesky_solve_nrhs1": lambda: torch.cholesky_solve(r1, L),
+            "cholesky_solve_nrhs_m": lambda: torch.cholesky_solve(At, L),
+            "chol_solve_nrhs1": lambda: chol_solve(L, r1),
+            "chol_solve_nrhs_m": lambda: chol_solve(L, At),
+            "matmul": lambda: H @ H,
+            "kkt_solve_static": lambda: kkt.kkt_solve(
+                H, A, 0.0, r1[..., 0], torch.zeros(Bn, m, dtype=f64,
+                                                   device=dev),
+                static=True),
+        }
+        for name, fn in ops.items():
+            captured(name, Bn, fn)
+    print(json.dumps({"ok": True}))
+    return 0
+
+
+def census_f64(dev) -> int:
+    """``python3 exp_graph_probe.py census <root>`` (the module
+    docstring)."""
+    import ctypes
+
+    import torch
+
+    import fcc_qp_tpu_torch
+    from fcc_qp_tpu_torch import FCCQPOptions
+    from fcc_qp_tpu_torch.core.graphs import (CapturedSolve, SolveBuffers,
+                                              layout, pack_host)
+    from fcc_qp_tpu_torch.models.osc import CASSIE, generate_osc_sequence
+    from fcc_qp_tpu_torch.ops import device_branch as db
+    from fcc_qp_tpu_torch.ops import kkt
+
+    out("tree", package=fcc_qp_tpu_torch.__file__,
+        has_cho_solve=hasattr(kkt, "_cho_solve"))
+    shape = CASSIE.shape
+    keys = ("Q", "b", "A_eq", "b_eq", "friction_coeffs", "lb", "ub")
+    qp = generate_osc_sequence(CASSIE, 1, seed=1)[0]
+    host = torch.empty((layout(shape)[-1],), dtype=torch.float64)
+    pack_host(shape, [qp[k] for k in keys], host)
+    opts = FCCQPOptions(max_iter=2000, rho=1.0, eps_fcone=1e-6,
+                        eps_bound=1e-6)
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def nodes_of(handles):
+        counts = {}
+        for h in handles:
+            n = ctypes.c_size_t(0)
+            assert cu.cuGraphGetNodes(ctypes.c_void_p(h), None,
+                                      ctypes.byref(n)) == 0
+            arr = (ctypes.c_void_p * n.value)()
+            assert cu.cuGraphGetNodes(ctypes.c_void_p(h), arr,
+                                      ctypes.byref(n)) == 0
+            kind = ctypes.c_int()
+            for node in arr:
+                assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                             ctypes.byref(kind)) == 0
+                counts[kind.value] = counts.get(kind.value, 0) + 1
+        return {str(k): v for k, v in sorted(counts.items())}
+
+    def capture(label):
+        graph_cls = torch.cuda.CUDAGraph
+        db.body_graphs.clear()
+        solve = CapturedSolve(shape, opts, "f64",
+                              SolveBuffers(shape, "f64", "cuda", opts.rho))
+        torch.cuda.CUDAGraph = lambda: graph_cls(keep_graph=True)
+        try:
+            solve.buffers.inp.copy_(host)
+            solve.run(warm_start=False)
+            torch.cuda.synchronize()
+            cold = solve._captured[False][:2]
+            nodes = nodes_of([g.raw_cuda_graph() for g in cold]
+                             + list(db.body_graphs))
+            out("census", variant=label, ok=True, nodes=nodes,
+                mem_alloc=nodes.get("10", 0), mem_free=nodes.get("11", 0),
+                z=float(solve.buffers.out[0]))
+        except Exception as e:  # report the variant, then go on
+            out("census", variant=label, ok=False,
+                error=str(e).splitlines()[0])
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.CUDAGraph = graph_cls
+
+    capture("as_is")
+    if hasattr(kkt, "_cho_solve"):
+        library = kkt._cho_solve
+
+        def triangular(L, R):
+            Y = torch.linalg.solve_triangular(L, R, upper=False)
+            return torch.linalg.solve_triangular(L.transpose(-1, -2), Y,
+                                                 upper=True)
+
+        kkt._cho_solve = triangular
+        capture("cho_solve_triangular")
+        kkt._cho_solve = library
+        capture("as_is_again")
     print(json.dumps({"ok": True}))
     return 0
 

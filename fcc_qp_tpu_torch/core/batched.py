@@ -12,7 +12,9 @@ data) with ``alpha`` inside the kernel, and the adaptation between
 chunks:
 
 * chunks of ``adaptive_rho_interval`` iterations when adapting (else of
-  up to 64), the convergence test between chunks (one host read each);
+  up to 64), the convergence test between chunks (eager: one host read
+  each; static, the form `core.graphs` captures: a branch on the device
+  flag, `core.ds_engine.chunk_loop`);
 * at a due check (``it >= next_adapt``, ``next_adapt`` doubling at every
   check, so the rebuilds are O(log(max_iter / K))) and while fewer than
   ``adaptive_rho_max_adaptations`` rebuilds ran: ``rho <- clip(rho *
@@ -21,7 +23,8 @@ chunks:
 * the scaled duals take ``rho_old / rho_new``, so the unscaled duals
   ``y = rho mu`` stay continuous;
 * the operator of the whole batch is rebuilt when any rho changed (an
-  instance whose rho did not change gets the identical operator back).
+  instance whose rho did not change gets the identical operator back;
+  static: an IF node, as the JAX engine's ``lax.cond``).
 
 With ``alpha = 1`` and ``adaptive_rho=False`` the iteration is the parity
 engine's, and so are the results. The primal-increment gate of the
@@ -39,13 +42,19 @@ from typing import Optional
 import torch
 
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
-from fcc_qp_tpu_torch.core.ds_engine import _rho_step, resolve_device
+from fcc_qp_tpu_torch.core.ds_engine import (
+    Stages,
+    chunk_loop,
+    resolve_device,
+    zero_batch,
+)
 from fcc_qp_tpu_torch.core.solver import (
     _details,
     _presolve,
     compute_dtype,
     full_chunk,
 )
+from fcc_qp_tpu_torch.ops.device_branch import branch
 from fcc_qp_tpu_torch.ops.kkt import admm_operator
 from fcc_qp_tpu_torch.ops.pallas_admm import GATE_ALL, GATE_OFF
 from fcc_qp_tpu_torch.types import FCCQPSolution, QPBatch, WarmStart
@@ -57,59 +66,122 @@ from fcc_qp_tpu_torch.utils.timing import (
 
 
 def _admm_batched(qp: QPBatch, x0, mu_x0, mu_lam0, rho, shape: ProblemShape,
-                  opts: FCCQPOptions, operator, clock: StageClock):
-    """The chunked loop with adaptation between chunks (B-leading in and
-    out). Returns ``(x, mu_x, mu_lam, n_iter, xrn, lrn)``."""
+                  opts: FCCQPOptions, operator, static: bool = False):
+    """The chunked loop with adaptation between chunks
+    (`core.ds_engine.chunk_loop`; B-leading in and out). ``static``:
+    read-free. Returns ``(x, mu_x, mu_lam, n_iter, xrn, lrn,
+    n_refactor)``."""
     nc, ls = shape.nc, shape.lambda_c_start
     B = x0.shape[0]
     dev, dt = x0.device, x0.dtype
     max_iter = opts.max_iter
     last = lambda a: a.T.contiguous()
-    Fj_of = lambda F: F.permute(2, 1, 0).contiguous()   # [j, i, b]
     K = opts.adaptive_rho_interval if opts.adaptive_rho else min(max_iter, 64)
     n_chunks = -(-max_iter // K)
-    F, x_const = operator
-    Fj, xc = Fj_of(F), last(x_const)
     lb, ub, mu_f = last(qp.lb), last(qp.ub), last(qp.friction_coeffs)
     zb = torch.zeros((B,), dtype=dt, device=dev)
     x = last(x0)
-    st = dict(
-        x=x, x_bar=x, lam_bar=x[ls:ls + nc].contiguous(), mu_x=last(mu_x0),
-        mu_lam=last(mu_lam0), v=x - last(mu_x0),
-        done=torch.zeros((B,), dtype=torch.bool, device=dev),
-        n_iter=torch.full((B,), max_iter, dtype=torch.int32, device=dev),
-        itv=None, xrn=zb, lrn=zb, prim=zb, dual=zb,
-    )
     keys = ("x", "x_bar", "lam_bar", "mu_x", "mu_lam", "v", "done",
             "n_iter", "itv", "xrn", "lrn", "prim", "dual")
+    st = (x, x, x[ls:ls + nc].contiguous(), last(mu_x0), last(mu_lam0),
+          x - last(mu_x0), torch.zeros((B,), dtype=torch.bool, device=dev),
+          torch.full((B,), max_iter, dtype=torch.int32, device=dev),
+          torch.zeros((B,), dtype=torch.int32, device=dev), zb, zb, zb, zb)
     gate = GATE_ALL if opts.presolve == "operator" else GATE_OFF
-    chunk = full_chunk(dt)
-    it, next_adapt, n_refactor = 0, K, 0
-    while it < n_chunks * K and not bool(st["done"].all()):
-        # every unfinished instance is at the global iteration count
-        st["itv"] = torch.full((B,), it, dtype=torch.int32, device=dev)
-        out = chunk(Fj, xc, lb, ub, mu_f, rho, opts.eps_bound,
-                    opts.eps_fcone, *(st[k] for k in keys), ls=ls, K=K,
-                    max_iter=max_iter, gate=gate, alpha=opts.alpha)
-        st = dict(zip(keys, out))
-        it += K
-        if not (opts.adaptive_rho and it >= next_adapt
-                and n_refactor < opts.adaptive_rho_max_adaptations):
-            continue
-        next_adapt *= 2
-        step = _rho_step(st["prim"], st["dual"], st["done"], rho, opts,
-                         dtype=dt)
-        if step is None:
-            continue
-        rho, scale = step
-        st["mu_x"] = st["mu_x"] * scale[None, :]
-        st["mu_lam"] = st["mu_lam"] * scale[None, :]
-        F, x_const = admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, rho)
-        Fj, xc = Fj_of(F), last(x_const)
-        n_refactor += 1
-    clock.count("n_refactor", n_refactor)
+    kernel = full_chunk(dt)
+
+    def operator_of(F, x_const):
+        return F.permute(2, 1, 0).contiguous(), last(x_const)  # [j, i, b]
+
+    def chunk(st, rho, op):
+        return kernel(*op, lb, ub, mu_f, rho, opts.eps_bound, opts.eps_fcone,
+                      *st, ls=ls, K=K, max_iter=max_iter, gate=gate,
+                      alpha=opts.alpha)
+
+    def rebuild(rho):
+        return operator_of(*admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, rho,
+                                          static=static))
+
+    st, _, _, n_refactor = chunk_loop(st, keys, rho, operator_of(*operator),
+                                      chunk, rebuild, opts, n_chunks, K,
+                                      static)
+    st = dict(zip(keys, st))
     return (st["x"].T, st["mu_x"].T, st["mu_lam"].T, st["n_iter"],
-            st["xrn"], st["lrn"])
+            st["xrn"], st["lrn"], n_refactor)
+
+
+def _prepare_fast(qp: QPBatch, opts: FCCQPOptions, static: bool = False):
+    """The operator stage: rho at ``opts.rho`` for every instance (in the
+    data's dtype) and its operator. Returns ``(rho, operator)``."""
+    B = qp.b.shape[0]
+    rho = torch.full((B,), float(opts.rho), dtype=qp.Q.dtype,
+                     device=qp.b.device)
+    return rho, admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, rho,
+                              static=static)
+
+
+def _iterate_fast(qp: QPBatch, prep, shape: ProblemShape, opts: FCCQPOptions,
+                  warm: Optional[WarmStart], warm_start: bool,
+                  clock: Optional[StageClock] = None, static: bool = False):
+    """The rest of the solve: the initial state (the exact presolve unless
+    ``warm_start``), the chunk loop, the details and the warm state.
+    ``static``: read-free (the presolve of a warm solve's
+    equality-constrained instances is a branch on whether there is
+    one)."""
+    B = qp.b.shape[0]
+    dev, dt = qp.b.device, qp.Q.dtype
+    nc = shape.nc
+    clock = clock or StageClock()
+    rho, operator = prep
+    if warm is None:
+        warm = WarmStart.zeros(shape, (B,), dtype=dt, device=dev)
+    if warm_start:
+        mu_x0, mu_lam0, x_init = warm.mu_x, warm.mu_lambda_c, warm.x
+    else:
+        mu_x0 = torch.zeros_like(warm.mu_x)
+        mu_lam0 = torch.zeros_like(warm.mu_lambda_c)
+        x_init = _presolve(qp, static)
+    # equality-constrained instances iterate with the batch (their
+    # residuals take part in the adaptation, as in the JAX engine) and
+    # take the presolve afterwards
+    if nc == 0:
+        eq_c = (torch.isinf(qp.lb).all(dim=-1)
+                & torch.isinf(qp.ub).all(dim=-1))
+        if warm_start:
+            (x_init,) = branch(
+                eq_c.any() if static else bool(eq_c.any()),
+                lambda x: (torch.where(eq_c[:, None], _presolve(qp, static),
+                                       x),), x_init)
+    else:
+        eq_c = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    x, mu_x, mu_lam, n_iter, xrn, lrn, n_refactor = _admm_batched(
+        qp, x_init, mu_x0, mu_lam0, rho, shape, opts, operator, static)
+    clock.mark("iterate")
+    clock.count("n_refactor", n_refactor)
+    x = torch.where(eq_c[:, None], x_init, x)
+    n_iter = torch.where(eq_c, 0, n_iter).to(torch.int32)
+    xrn = torch.where(eq_c, torch.zeros_like(xrn), xrn)
+    lrn = torch.where(eq_c, torch.zeros_like(lrn), lrn)
+    details = _details(x, qp, shape, n_iter, xrn, lrn, opts.max_iter)
+    sol = FCCQPSolution(details=details, z=x)
+    new_warm = WarmStart(x=x, mu_x=torch.where(eq_c[:, None], mu_x0, mu_x),
+                         mu_lambda_c=mu_lam)
+    clock.mark("finalize")
+    return sol, new_warm
+
+
+def fast_stages(shape: ProblemShape, opts: FCCQPOptions,
+                dtype=torch.float64) -> Stages:
+    """`solve_batched_fast`'s static stage pair on ``dtype`` data (the
+    form `core.graphs.CapturedBatch` captures)."""
+    return Stages(
+        ("fast", shape, opts, dtype),
+        lambda B, dev: zero_batch(shape, B, dev, dtype, batch_last=False),
+        lambda qp, warm, cache, warm_start: _prepare_fast(qp, opts,
+                                                          static=True),
+        lambda qp, prep, warm, cache, warm_start: _iterate_fast(
+            qp, prep, shape, opts, warm, warm_start, static=True))
 
 
 def solve_batched_fast(
@@ -120,6 +192,7 @@ def solve_batched_fast(
     warm_start: bool = False,
     device=None,
     stage_times: Optional[dict] = None,
+    graphs: Optional[bool] = None,
 ):
     """Accelerated batched solve (leading batch axis): the parity
     engine's control flow (duals reset unless ``warm_start``; the exact
@@ -130,62 +203,42 @@ def solve_batched_fast(
 
     Runs on ``device`` (default CUDA; raises when there is no card) in
     the data's dtype (f32 or f64); rho starts at ``opts.rho`` for every
-    instance and adapts per instance. ``details.solve_time`` is the wall
-    of the call and ``details.factorization_time`` the initial operator
-    build, each span ending in a device synchronize. ``stage_times``: a
-    dict that receives the synchronized seconds of the stages
-    ``operator``, ``iterate`` and ``finalize`` and the count of operator
-    rebuilds ``n_refactor``.
+    instance and adapts per instance. On the card the solve runs
+    captured (`fast_stages`, `core.graphs.solve_captured`: the first call
+    of each configuration, batch size and ``warm_start`` captures it, and
+    every call replays it); ``graphs=False`` runs it uncaptured (the
+    eager path, which reads the device between chunks).
+    ``details.solve_time`` is the span of the whole solve and
+    ``details.factorization_time`` the initial operator build's (CUDA
+    events around the replays; uncaptured, wall spans each ending in a
+    device synchronize). ``stage_times``: a dict that receives the
+    synchronized seconds of the stages ``operator``, ``iterate`` and
+    ``finalize`` and the count of operator rebuilds ``n_refactor``; such
+    a call runs uncaptured.
 
     Returns ``(FCCQPSolution, WarmStart)``, batch-leading.
     """
     dev = resolve_device(device)
     dt = compute_dtype(qp)
     qp = qp.to(dev, dt)
-    B = qp.b.shape[0]
-    nc = shape.nc
-    if warm is None:
-        warm = WarmStart.zeros(shape, (B,), dtype=dt, device=dev)
-    else:
+    if warm is not None:
         warm = warm.to(dev, dt)
-    rho = torch.full((B,), float(opts.rho), dtype=dt, device=dev)
+    if graphs and dev.type != "cuda":
+        raise ValueError("CUDA graphs need a CUDA device")
+    if dev.type == "cuda" and stage_times is None and graphs is not False:
+        from fcc_qp_tpu_torch.core.graphs import solve_captured
+
+        return solve_captured(fast_stages(shape, opts, dt), qp, warm,
+                              warm_start, dev)
     clock = StageClock(stage_times, dev)
     sync(dev)
     t0 = time.perf_counter()
-    operator = admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, rho)
+    prep = _prepare_fast(qp, opts)
     clock.mark("operator")
     sync(dev)
     t1 = time.perf_counter()
-
-    if warm_start:
-        mu_x0, mu_lam0, x_init = warm.mu_x, warm.mu_lambda_c, warm.x
-    else:
-        mu_x0 = torch.zeros_like(warm.mu_x)
-        mu_lam0 = torch.zeros_like(warm.mu_lambda_c)
-        x_init = _presolve(qp)
-    # equality-constrained instances iterate with the batch (their
-    # residuals take part in the adaptation, as in the JAX engine) and
-    # take the presolve afterwards
-    if nc == 0:
-        eq_c = (torch.isinf(qp.lb).all(dim=-1)
-                & torch.isinf(qp.ub).all(dim=-1))
-        if warm_start and bool(eq_c.any()):
-            x_init = torch.where(eq_c[:, None], _presolve(qp), x_init)
-    else:
-        eq_c = torch.zeros((B,), dtype=torch.bool, device=dev)
-
-    x, mu_x, mu_lam, n_iter, xrn, lrn = _admm_batched(
-        qp, x_init, mu_x0, mu_lam0, rho, shape, opts, operator, clock)
-    clock.mark("iterate")
-    x = torch.where(eq_c[:, None], x_init, x)
-    n_iter = torch.where(eq_c, 0, n_iter).to(torch.int32)
-    xrn = torch.where(eq_c, torch.zeros_like(xrn), xrn)
-    lrn = torch.where(eq_c, torch.zeros_like(lrn), lrn)
-    details = _details(x, qp, shape, n_iter, xrn, lrn, opts.max_iter)
-    sol = FCCQPSolution(details=details, z=x)
-    new_warm = WarmStart(x=x, mu_x=torch.where(eq_c[:, None], mu_x0, mu_x),
-                         mu_lambda_c=mu_lam)
-    clock.mark("finalize")
+    sol, new_warm = _iterate_fast(qp, prep, shape, opts, warm, warm_start,
+                                  clock)
     sync(dev)
     t2 = time.perf_counter()
     return stamp_solution_times(sol, t2 - t0, t1 - t0), new_warm

@@ -33,14 +33,14 @@ The JAX engine's `lax.while_loop` over chunks is a Python loop here.
 The eager path (``static=False``) tests convergence between chunks on
 the host (one read per chunk, and one per gathered pass). With
 ``static=True`` (the form `core.graphs` captures as CUDA graphs, at any
-batch size) the reduced path reads nothing back: each loop runs to the
-bound its shapes and options give it (the chunk loops ``n_chunks``
-passes, each gathered loop the ``ceil(B / C)`` passes that cover the
-batch at its capacity C), and every chunk, polish round, rescue pass,
-adaptation and fallback the eager path may skip is a
-`ops.device_branch.branch` on its device flag: an IF node of the graph
-under a capture, computed and selected otherwise. The results are the
-eager ones bit for bit.
+batch size; `reduced_stages`, `full_stages`) neither engine reads
+anything back: each loop runs to the bound its shapes and options give
+it (the chunk loops ``n_chunks`` passes, each gathered loop the
+``ceil(B / C)`` passes that cover the batch at its capacity C), and
+every chunk, polish round, rescue pass, adaptation, operator rebuild and
+fallback the eager path may skip is a `ops.device_branch.branch` on its
+device flag: an IF node of the graph under a capture, computed and
+selected otherwise. The results are the eager ones bit for bit.
 Both engines take over-relaxation (``alpha``, inside the kernels) and
 adaptive rho (between chunks: the residual-balance rule, the scaled
 duals rescaled to keep the unscaled ones, the operator rebuilt only when
@@ -62,7 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -98,6 +98,7 @@ from fcc_qp_tpu_torch.types import (
     FCCQPDetails,
     FCCQPSolution,
     FCCQPSolveStatus,
+    QPBatch,
     WarmStart,
 )
 from fcc_qp_tpu_torch.utils.io import QP_KEYS
@@ -159,6 +160,95 @@ class OperatorCache(NamedTuple):
     # it every carried seed, from jumping when a recomputed factor would
     # cross a power of two
     scales: Optional[Scaling] = None
+
+
+def field_dims(shape: ProblemShape):
+    """The unbatched shape of each of the seven QP fields (Q, b, A_eq,
+    b_eq, friction_coeffs, lb, ub)."""
+    n, m, k = shape.num_vars, shape.num_eq, shape.n_cones
+    return ((n, n), (n,), (m, n), (m,), (k,), (n,), (n,))
+
+
+def zero_batch(shape: ProblemShape, B: int, device, dtype=torch.float64,
+               batch_last: bool = True):
+    """A batch of ``B`` zero QPs, the input buffers of a captured solve:
+    a batch-last `QPBatchDS` (the ds engines), or a batch-leading
+    `types.QPBatch` (the others)."""
+    kw = dict(dtype=dtype, device=device)
+    if batch_last:
+        return QPBatchDS(*(torch.zeros((*d, B), **kw)
+                           for d in field_dims(shape)))
+    return QPBatch(*(torch.zeros((B, *d), **kw) for d in field_dims(shape)))
+
+
+class Stages(NamedTuple):
+    """An engine's read-free (static) solve of a batch in two stages: the
+    form `core.graphs.CapturedBatch` captures as an operator graph and an
+    iteration graph, and runs uncaptured on the CPU.
+
+    * ``key``: the engine and its configuration (with the batch size and
+      device, a capture's cache key);
+    * ``inputs(B, device)``: zeroed input buffers for a batch of B, in the
+      layout the stages read (a batch-last `QPBatchDS`, or a
+      batch-leading `types.QPBatch` in the data's dtype);
+    * ``prepare(qp, warm, cache, warm_start)``: the operator stage;
+    * ``iterate(qp, prep, warm, cache, warm_start)``: the rest, returning
+      ``(solution, warm)``, with ``cached`` ``(solution, warm,
+      OperatorCache)``;
+    * ``cached``: whether the solve threads an `OperatorCache` from solve
+      to solve (the reduced path's replay).
+
+    ``warm`` and ``cache`` are None on a cold solve (``cache`` also where
+    the engine carries none)."""
+
+    key: tuple
+    inputs: Callable
+    prepare: Callable
+    iterate: Callable
+    cached: bool = False
+
+
+def reduced_stages(shape: ProblemShape, opts: FCCQPOptions, con_idx,
+                   cached: bool = False) -> Stages:
+    """The reduced path's stage pair for the classification ``con_idx``
+    (`constrained_indices`): `_prepare_reduced` / `_iterate_reduced`, or
+    the one refined KKT solve of a batch without a constrained
+    coordinate. ``cached``: thread the `OperatorCache` (a replay)."""
+    con_idx = tuple(int(i) for i in con_idx)
+    none = OperatorCache()
+
+    def prepare(qp, warm, cache, warm_start):
+        if not con_idx:
+            return _solve_reduced_k0(qp, shape, opts, static=True)
+        cache = cache if cache is not None else none
+        return _prepare_reduced(qp, warm, shape, opts, warm_start, con_idx,
+                                kkt_seed=cache.kkt_seed, scales=cache.scales,
+                                static=True)
+
+    def iterate(qp, prep, warm, cache, warm_start):
+        if not con_idx:
+            return prep + (OperatorCache(),) if cached else prep
+        cache = cache if cache is not None else none
+        return _iterate_reduced(qp, prep, shape, opts, con_idx,
+                                polish_seed=cache.polish_seed,
+                                polish_cls=cache.polish_cls,
+                                with_cache=cached, static=True)
+
+    return Stages(("reduced", shape, opts, con_idx, cached),
+                  lambda B, dev: zero_batch(shape, B, dev), prepare, iterate,
+                  cached)
+
+
+def full_stages(shape: ProblemShape, opts: FCCQPOptions) -> Stages:
+    """The full-splitting engine's stage pair: `_prepare_full` /
+    `_iterate_full`, static."""
+    return Stages(
+        ("full", shape, opts),
+        lambda B, dev: zero_batch(shape, B, dev),
+        lambda qp, warm, cache, warm_start: _prepare_full(
+            qp, warm, shape, opts, warm_start, static=True),
+        lambda qp, prep, warm, cache, warm_start: _iterate_full(
+            qp, prep, shape, opts, static=True))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -1147,14 +1237,18 @@ def _iterate_reduced(qp, prep: _PrepReduced, shape, opts, con_idx,
 # --------------------------------------------------------------------------
 
 
-def _factor(qp: QPBatchDS, rho: torch.Tensor, refine_steps: int):
+def _factor(qp: QPBatchDS, rho: torch.Tensor, refine_steps: int,
+            static: bool = False):
     """The full-splitting operator ``(Fj, x_const)``: Fj (n, n, B) j-major
     so that the primal update is ``x = x_const + rho F v``, from the f64
     Schur-Cholesky route with refinement against the true KKT
     (`ops.ds_linalg.kkt_inverse_blocks_refined_ds`). The computed F is not
-    exactly symmetric, so it is transposed to j-major explicitly."""
+    exactly symmetric, so it is transposed to j-major explicitly.
+    ``static``: read-free (its shift levels and extra refinement are
+    branches)."""
     F, G = kkt_inverse_blocks_refined_ds(qp.Q, qp.A_eq, rho,
-                                         refine_steps=refine_steps)
+                                         refine_steps=refine_steps,
+                                         static=static)
     Fj = transpose_ds(F).contiguous()
     x_const = matvec_ds(transpose_ds(G), qp.b_eq) - matvec_ds(Fj, qp.b)
     return Fj, x_const.contiguous()
@@ -1173,11 +1267,13 @@ class _PrepFull(NamedTuple):
 
 
 def _prepare_full(qp: QPBatchDS, warm: Optional[WarmStartDS], shape,
-                  opts: FCCQPOptions, warm_start: bool) -> _PrepFull:
+                  opts: FCCQPOptions, warm_start: bool,
+                  static: bool = False) -> _PrepFull:
     """Stage 1 of the full engine (the "factorization" phase): the
     warm-state setup, the exact presolve (or, with ``presolve='operator'``,
     the operator's own constant term as the initial primal) and the KKT
-    operator."""
+    operator. ``static``: read-free (the presolve of a warm solve's
+    equality-constrained instances is a branch on whether there is one)."""
     nv, nc = shape.num_vars, shape.nc
     B = qp.batch
     dev = qp.b.device
@@ -1194,12 +1290,19 @@ def _prepare_full(qp: QPBatchDS, warm: Optional[WarmStartDS], shape,
         rho0 = torch.full((B,), opts.rho, dtype=torch.float32, device=dev)
         x_init = None
         if opts.presolve == "exact":
-            x_init = kkt_solve_refined_ds(qp.Q, qp.A_eq, -qp.b, qp.b_eq)
+            x_init = kkt_solve_refined_ds(qp.Q, qp.A_eq, -qp.b, qp.b_eq,
+                                          static=static)
     eq_c = _equality_only(qp, nc)
-    if warm_start and bool(eq_c.any()):
-        x_pre = kkt_solve_refined_ds(qp.Q, qp.A_eq, -qp.b, qp.b_eq)
-        x_init = torch.where(eq_c[None, :], x_pre, x_init)
-    Fj, x_const = _factor(qp, rho0, opts.kkt_refine_steps)
+    if warm_start and nc == 0:
+        # (with cones no instance is equality-constrained)
+        def presolve(x_init):
+            x_pre = kkt_solve_refined_ds(qp.Q, qp.A_eq, -qp.b, qp.b_eq,
+                                         static=static)
+            return (torch.where(eq_c[None, :], x_pre, x_init),)
+
+        (x_init,) = branch(eq_c.any() if static else bool(eq_c.any()),
+                           presolve, x_init)
+    Fj, x_const = _factor(qp, rho0, opts.kkt_refine_steps, static=static)
     if x_init is None:
         # operator presolve: the rho-regularized equality-QP solution
         # (the v = 0 primal update)
@@ -1210,12 +1313,14 @@ def _prepare_full(qp: QPBatchDS, warm: Optional[WarmStartDS], shape,
 
 
 def _iterate_full(qp: QPBatchDS, prep: _PrepFull, shape,
-                  opts: FCCQPOptions, clock: Optional[StageClock] = None):
+                  opts: FCCQPOptions, clock: Optional[StageClock] = None,
+                  static: bool = False):
     """Stage 2 of the full engine: the ADMM loop in chunks of
     `admm_chunk_full_f64` (of ``adaptive_rho_interval`` iterations when
-    adapting, else ``min(max_iter, 64)``), adaptive rho between chunks,
-    then the violations, status and warm state. One host read per chunk
-    (and one per adaptation)."""
+    adapting, else ``min(max_iter, 64)``) with adaptive rho between
+    chunks (`chunk_loop`: eager, one host read per chunk and one per
+    adaptation; ``static``, read-free), then the violations, status and
+    warm state."""
     nc, ls = shape.nc, shape.lambda_c_start
     B = qp.batch
     dev = qp.b.device
@@ -1231,40 +1336,28 @@ def _iterate_full(qp: QPBatchDS, prep: _PrepFull, shape,
 
     x0 = prep.x_init
     zb = torch.zeros((B,), dtype=torch.float64, device=dev)
-    st = dict(
-        x=x0, x_bar=x0, lam_bar=x0[ls:ls + nc].contiguous(), mu_x=prep.mu_x0,
-        mu_lam=prep.mu_lam0, v=x0 - prep.mu_x0,
-        done=torch.zeros((B,), dtype=torch.bool, device=dev),
-        n_iter=torch.full((B,), max_iter, dtype=torch.int32, device=dev),
-        itv=None, xrn=zb, lrn=zb, prim=zb, dual=zb,
-    )
+    # the chunk kernel's state, in its argument order
     keys = ("x", "x_bar", "lam_bar", "mu_x", "mu_lam", "v", "done",
             "n_iter", "itv", "xrn", "lrn", "prim", "dual")
-    rho, Fj, x_const = prep.rho0, prep.Fj, prep.x_const
+    st = (x0, x0, x0[ls:ls + nc].contiguous(), prep.mu_x0, prep.mu_lam0,
+          x0 - prep.mu_x0, torch.zeros((B,), dtype=torch.bool, device=dev),
+          torch.full((B,), max_iter, dtype=torch.int32, device=dev),
+          torch.zeros((B,), dtype=torch.int32, device=dev), zb, zb, zb, zb)
     lb, ub = qp.lb.contiguous(), qp.ub.contiguous()
     mu_f = qp.friction_coeffs.contiguous()
-    it, next_adapt, n_refactor = 0, K, 0
-    while it < n_chunks * K and not bool(st["done"].all()):
-        # per-instance counters equal the global one on this single-phase
-        # path (a frozen instance is done)
-        st["itv"] = torch.full((B,), it, dtype=torch.int32, device=dev)
-        out = admm_chunk_full_f64(
-            Fj, x_const, lb, ub, mu_f, rho.double(), eps_b, eps_f,
-            *(st[k] for k in keys), ls=ls, K=K, max_iter=max_iter,
-            gate=gate, alpha=alpha,
-        )
-        st = dict(zip(keys, out))
-        it += K
-        if opts.adaptive_rho:
-            due = it >= next_adapt and (
-                n_refactor < opts.adaptive_rho_max_adaptations)
-            if due:
-                rho, Fj, x_const, changed = _adapt_rho(
-                    qp, st, rho, Fj, x_const, opts)
-                n_refactor += int(changed)
-                next_adapt *= 2
+
+    def chunk(st, rho, op):
+        return admm_chunk_full_f64(
+            *op, lb, ub, mu_f, rho.double(), eps_b, eps_f, *st, ls=ls, K=K,
+            max_iter=max_iter, gate=gate, alpha=alpha)
+
+    st, rho, _, n_refactor = chunk_loop(
+        st, keys, prep.rho0, (prep.Fj, prep.x_const), chunk,
+        lambda rho: _factor(qp, rho, opts.kkt_refine_steps, static=static),
+        opts, n_chunks, K, static)
     clock.mark("iterate")
     clock.count("n_refactor", n_refactor)
+    st = dict(zip(keys, st))
 
     eq_c = prep.eq_c
     x = torch.where(eq_c[None, :], prep.x_init, st["x"])
@@ -1296,21 +1389,96 @@ def _iterate_full(qp: QPBatchDS, prep: _PrepFull, shape,
     return FCCQPSolution(details=details, z=x.T.contiguous()), new_warm
 
 
-def _adapt_rho(qp: QPBatchDS, st: dict, rho, Fj, x_const,
-               opts: FCCQPOptions):
-    """One adaptive-rho step of the full engine (`_rho_step`); the batch's
-    operator is rebuilt when any rho changed (an instance whose rho did
-    not change gets the identical operator back). Returns ``(rho, Fj,
-    x_const, changed)``."""
-    step = _rho_step(st["prim"], st["dual"], st["done"], rho, opts)
-    if step is None:
-        return rho, Fj, x_const, False
-    new_rho, scale = step
-    scale = scale.double()
-    st["mu_x"] = st["mu_x"] * scale[None, :]
-    st["mu_lam"] = st["mu_lam"] * scale[None, :]
-    Fj, x_const = _factor(qp, new_rho, opts.kkt_refine_steps)
-    return new_rho, Fj, x_const, True
+def _rescale_duals(st: tuple, keys: tuple, scale: torch.Tensor) -> tuple:
+    """The chunk state ``st`` (in ``keys`` order) with the scaled duals
+    times ``scale`` (rho_old / rho_new), so that the unscaled duals stay."""
+    st = list(st)
+    for k in ("mu_x", "mu_lam"):
+        mu = st[keys.index(k)]
+        st[keys.index(k)] = mu * scale.to(mu.dtype)[None, :]
+    return tuple(st)
+
+
+def chunk_loop(st: tuple, keys: tuple, rho: torch.Tensor, op: tuple, chunk,
+               rebuild, opts: FCCQPOptions, n_chunks: int, K: int,
+               static: bool = False):
+    """The chunk loop of the full-layout engines (the full-splitting
+    engine here, `core.batched.solve_batched_fast`), the port of their
+    JAX ``while_loop`` with the adaptation between chunks:
+    ``chunk(st, rho, op)`` runs one chunk and returns the new state (in
+    ``keys`` order: ``done``, ``itv``, ``prim`` and ``dual`` among them;
+    ``itv``, each running instance's iteration count, is set to the
+    global count before every chunk: a frozen instance is done on these
+    single-phase engines); ``rebuild(rho)`` returns the operator ``op``
+    (a tuple of tensors) of a new rho. While an instance runs and fewer
+    than ``n_chunks`` chunks ran: a chunk, then, when adapting, a check
+    that falls due at ``next_adapt`` (then doubled) while fewer than
+    ``adaptive_rho_max_adaptations`` rebuilds ran: `_rho_step` in rho's
+    dtype, and where some rho changed, the scaled duals rescaled and the
+    whole batch's operator rebuilt.
+
+    Eager: the loop reads ``done`` and the rho change on the host.
+    ``static``: read-free: ``n_chunks`` chunks, each a `branch` on
+    whether an instance still runs, with the counters on the device and
+    the rebuild a branch on whether the check is due and some rho
+    changed (the JAX engines' ``lax.cond``). Returns ``(st, rho, op,
+    n_refactor)`` (a 0-d device counter when static)."""
+    i = keys.index
+    max_adapt = opts.adaptive_rho_max_adaptations
+
+    def chunk_from(st, rho, op, it):
+        st = list(st)
+        st[i("itv")] = torch.full_like(st[i("itv")], it)
+        return tuple(chunk(st, rho, op))
+
+    if not static:
+        it, next_adapt, n_refactor = 0, K, 0
+        while it < n_chunks * K and not bool(st[i("done")].all()):
+            st = chunk_from(st, rho, op, it)
+            it += K
+            if not (opts.adaptive_rho and it >= next_adapt
+                    and n_refactor < max_adapt):
+                continue
+            next_adapt *= 2
+            step = _rho_step(st[i("prim")], st[i("dual")], st[i("done")],
+                             rho, opts, dtype=rho.dtype)
+            if step is None:
+                continue
+            rho, scale = step
+            st, op = _rescale_duals(st, keys, scale), rebuild(rho)
+            n_refactor += 1
+        return st, rho, op, n_refactor
+
+    dev = rho.device
+    count = lambda v: torch.full((), v, dtype=torch.int32, device=dev)
+    next_adapt, n_refactor = count(K), count(0)
+    for c in range(n_chunks):
+        # a check falls due only where the iteration count reaches
+        # next_adapt, which starts at K and doubles at every due check:
+        # after the chunks c with c + 1 a power of two
+        check = opts.adaptive_rho and (c + 1) & c == 0
+
+        def step(st, rho, op, next_adapt, n_refactor, c=c, check=check):
+            st = chunk_from(st, rho, op, c * K)
+            if not check:
+                return st, rho, op, next_adapt, n_refactor
+            due = (next_adapt <= (c + 1) * K) & (n_refactor < max_adapt)
+            next_adapt = torch.where(due, next_adapt * 2, next_adapt)
+            new_rho, scale, changed = _rho_step(
+                st[i("prim")], st[i("dual")], st[i("done")], rho, opts,
+                dtype=rho.dtype, static=True)
+
+            def adapt(st, rho, op, n_refactor):
+                return (_rescale_duals(st, keys, scale), new_rho,
+                        rebuild(new_rho), n_refactor + 1)
+
+            st, rho, op, n_refactor = branch(due & changed, adapt, st, rho,
+                                             op, n_refactor)
+            return st, rho, op, next_adapt, n_refactor
+
+        st, rho, op, next_adapt, n_refactor = branch(
+            ~st[i("done")].all(), step, st, rho, op, next_adapt, n_refactor)
+    return st, rho, op, n_refactor
 
 
 def solve_batched_ds(
@@ -1335,14 +1503,15 @@ def solve_batched_ds(
     over-relaxation (``alpha``) and adaptive rho.
 
     Runs on ``device`` (default CUDA; raises when there is no card),
-    moving ``qp`` / ``warm`` there if they live elsewhere. On the card the
-    reduced path runs captured: the first call of each ``(shape, opts,
-    batch size, con_idx, warm_start)`` captures its read-free solve as
-    CUDA graphs (`core.graphs.solve_captured`; the counterpart of the JAX
-    package's compile per shape), and every call copies the batch into
-    the graphs' buffers and replays them, with no host read until the
-    result is copied out. ``graphs=False`` runs it uncaptured (the
-    eager path, which reads the device between chunks).
+    moving ``qp`` / ``warm`` there if they live elsewhere. On the card
+    both engines run captured: the first call of each ``(engine, shape,
+    opts, batch size, con_idx, warm_start)`` captures its read-free solve
+    (`reduced_stages`, `full_stages`) as CUDA graphs
+    (`core.graphs.solve_captured`; the counterpart of the JAX package's
+    compile per shape), and every call copies the batch into the graphs'
+    buffers and replays them, with no host read until the result is
+    copied out. ``graphs=False`` runs it uncaptured (the eager path,
+    which reads the device between chunks).
 
     ``details.solve_time`` / ``factorization_time``: both stages' span
     and the operator stage's, from CUDA events around the replays
@@ -1369,12 +1538,12 @@ def solve_batched_ds(
                                       full=opts.splitting == "full")
     if graphs and dev.type != "cuda":
         raise ValueError("CUDA graphs need a CUDA device")
-    if (reduced and dev.type == "cuda" and stage_times is None
-            and graphs is not False):
+    if dev.type == "cuda" and stage_times is None and graphs is not False:
         from fcc_qp_tpu_torch.core.graphs import solve_captured
 
-        return solve_captured(qp, shape, opts, warm, warm_start, con_idx,
-                              dev)
+        stages = (reduced_stages(shape, opts, con_idx) if reduced
+                  else full_stages(shape, opts))
+        return solve_captured(stages, qp, warm, warm_start, dev)
     t0 = time.perf_counter()
     clock = StageClock(stage_times, dev)
     if reduced and len(con_idx) == 0:
@@ -1465,7 +1634,8 @@ def replay_ds_streams(
     reference's serial warm-started loop; the streams fill the card.
 
     Runs on ``device`` (default CUDA; raises when there is no card). On
-    the card the reduced path runs captured (`core.graphs.replay_captured`):
+    the card the full engine's steps replay `solve_batched_ds`'s capture,
+    and the reduced path runs captured (`core.graphs.replay_captured`):
     step 0 replays the cold graphs of the S-stream batch and every later
     step the warm graphs, which carry the warm state and the operator
     cache in static buffers, with no host read between steps (the JAX
@@ -1511,8 +1681,8 @@ def replay_ds_streams(
             and graphs is not False):
         from fcc_qp_tpu_torch.core.graphs import replay_captured
 
-        sols, ws, wall, factor_t = replay_captured(log, shape, opts,
-                                                   con_idx, dev)
+        sols, ws, wall, factor_t = replay_captured(
+            reduced_stages(shape, opts, con_idx, cached=True), log, dev)
         return stamp_solution_times(_to_global(sols, S), wall / steps,
                                     factor_t), ws
 

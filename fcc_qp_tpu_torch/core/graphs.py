@@ -31,9 +31,12 @@ or with ``graphs=False`` (the eager reference `chip_smoke.py` holds the
 replays against), the same static solve runs eagerly, stage by stage.
 A failed capture raises: nothing falls back to the eager solve.
 
-`CapturedBatch` does the same for the reduced path at any batch size:
-`solve_batched_ds` and `replay_ds_streams` on the card replay one (see
-its docstring and `solve_captured`).
+`CapturedBatch` does the same for a batch of any size, for whichever
+engine's static stage pair it is given (`core.ds_engine.Stages`: the
+reduced path, the full-splitting engine, `solve_batched_fast`, the
+parity engine): `solve_batched_ds`, `replay_ds_streams`,
+`solve_batched_fast`, `solve_batched` and `replay` on the card replay one
+(see its docstring, `solve_captured` and `replay_captured`).
 
 Capture runs with cuSOLVER as PyTorch's linear-algebra backend (MAGMA's
 batched routines wait on the host); at one instance PyTorch picks
@@ -55,13 +58,15 @@ import torch
 
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
 from fcc_qp_tpu_torch.core.ds_engine import (
-    OperatorCache,
     QPBatchDS,
+    Stages,
     WarmStartDS,
     _iterate_reduced,
     _prepare_reduced,
     _solve_reduced_k0,
     constrained_indices,
+    field_dims,
+    reduced_stages,
 )
 from fcc_qp_tpu_torch.ops.device_branch import (
     _leaves,
@@ -111,12 +116,6 @@ def layout(shape: ProblemShape):
     n, m, k = shape.num_vars, shape.num_eq, shape.n_cones
     sizes = (n * n, n, m * n, m, k, n, n)
     return tuple(int(o) for o in np.cumsum((0,) + sizes))
-
-
-def field_dims(shape: ProblemShape):
-    """The unbatched shape of each packed field."""
-    n, m, k = shape.num_vars, shape.num_eq, shape.n_cones
-    return ((n, n), (n,), (m, n), (m,), (k,), (n,), (n,))
 
 
 def pack_host(shape: ProblemShape, fields, out: torch.Tensor) -> None:
@@ -323,12 +322,12 @@ class CapturedSolve:
 
 
 # --------------------------------------------------------------------------
-# the batched reduced solve
+# the batched solves
 # --------------------------------------------------------------------------
 
-# the batched captures `solve_captured` keeps (least recently used
+# the batched captures `captured_batch` keeps (least recently used
 # dropped, and with it its graphs' memory), as `core.api.FCCQP` keeps its
-# own: one per (shape, options, batch, classification, cache, device)
+# own: one per (engine configuration, batch, device)
 MAX_CAPTURES = 8
 _CAPTURES: collections.OrderedDict = collections.OrderedDict()
 
@@ -349,17 +348,23 @@ def _store(dst, src) -> None:
 
 
 class CapturedBatch:
-    """The reduced path's static solve of a batch of ``B`` (the
-    ``static=True`` form of `core.ds_engine._solve_ds_reduced`) for one
-    ``(shape, opts, con_idx)``, over static buffers on ``device``:
+    """An engine's static solve of a batch of ``B`` (its `Stages`: the
+    reduced path's `core.ds_engine.reduced_stages`, `full_stages`, the
+    batch-level engine's `core.batched.fast_stages`, the parity engine's
+    `core.solver.parity_stages`), over static buffers on ``device``:
 
-    * ``inp``: the batch, a batch-last `QPBatchDS` (`load`);
+    * ``inp``: the batch, in the stages' layout (`load`);
     * ``warm``: the warm state a warm solve starts from (`load_warm`, or
       the solve before it); every solve writes its new state into it;
-    * ``cache``: with ``with_cache``, the `OperatorCache` (KKT and polish
-      seeds, classification, Ruiz factors) a warm solve starts from and
-      every solve writes, as a replay threads it from step to step;
+    * ``cache``: where the stages thread one (a reduced replay), the
+      `OperatorCache` (KKT and polish seeds, classification, Ruiz
+      factors) a warm solve starts from and every solve writes, as a
+      replay threads it from step to step;
     * ``out``: the solution (`FCCQPSolution`, batch-leading).
+
+    ``CapturedBatch(shape, opts, con_idx, B, device, with_cache=...)`` is
+    the reduced path's spelling of ``CapturedBatch(reduced_stages(shape,
+    opts, con_idx, cached=with_cache), B, device)``.
 
     `run` solves the batch in ``inp``, cold or warm, into the buffers.
     On CUDA the first `run` of each kind captures it: a warm-up of the
@@ -369,71 +374,59 @@ class CapturedBatch:
     later runs replay them. On the CPU, or with ``graphs=False`` (the
     uncaptured static solve the replays are held against), the static
     solve runs eagerly. A failed capture raises. ``capture_seconds``
-    holds each capture's warm-up, capture and instantiation seconds,
+    holds each capture's warm-up, capture and instantiate seconds,
     ``capture_launches`` the hand kernels' launches in one replay of each
     pair (counted while it is captured: every launch is one kernel node,
     whether or not its IF body runs), and ``graph_handles`` the
     ``cudaGraph_t`` of each graph and of every IF body in it."""
 
-    def __init__(self, shape: ProblemShape, opts: FCCQPOptions, con_idx,
-                 B: int, device, with_cache: bool = False,
+    def __init__(self, stages, *args, with_cache: bool = False,
                  graphs: Optional[bool] = None):
-        self.shape, self.opts, self.B = shape, opts, B
-        self.con_idx = tuple(con_idx)
-        self.with_cache = with_cache
+        if not isinstance(stages, Stages):
+            shape, opts, con_idx, *args = (stages, *args)
+            stages = reduced_stages(shape, opts, con_idx, cached=with_cache)
+        B, device = args
+        self.stages, self.B = stages, B
+        self.with_cache = stages.cached
         self.device = torch.device(device)
         cuda = self.device.type == "cuda"
         self.graphs = cuda if graphs is None else graphs
         if self.graphs and not cuda:
             raise ValueError("CUDA graphs need a CUDA device")
-        f64 = dict(dtype=torch.float64, device=self.device)
-        self.inp = QPBatchDS(*(torch.zeros((*d, B), **f64)
-                               for d in field_dims(shape)))
-        self.warm: Optional[WarmStartDS] = None
-        self.cache: Optional[OperatorCache] = None
+        self.inp = stages.inputs(B, self.device)
+        self.warm = None
+        self.cache = None
         self.out = None
         self._captured: dict = {}
         self.capture_seconds: dict = {}
         self.capture_launches: dict = {}
         self.graph_handles: dict = {}
 
-    def load(self, qp: QPBatchDS) -> None:
-        """Copy the batch ``qp`` (batch-last, any device) into ``inp``."""
-        for buf, a in zip(self.inp, qp):
+    def load(self, qp) -> None:
+        """Copy the batch ``qp`` (in the stages' layout, any device) into
+        ``inp``."""
+        for buf, a in zip(_leaves(self.inp, []), _leaves(qp, [])):
             buf.copy_(a)
 
-    def load_warm(self, warm: WarmStartDS) -> None:
+    def load_warm(self, warm) -> None:
         """Copy a warm state into the ``warm`` buffers."""
         if self.warm is None:
-            self.warm = WarmStartDS(*(a.to(self.device).clone()
-                                      for a in warm))
+            self.warm = _rebuild(warm, iter([a.to(self.device).clone()
+                                             for a in _leaves(warm, [])]))
         else:
-            for buf, a in zip(self.warm, warm):
-                buf.copy_(a)
+            _store(self.warm, warm)
 
     # -- the static solve, in two stages ------------------------------
     def _prepare(self, warm_start: bool):
-        s, o = self.shape, self.opts
-        if len(self.con_idx) == 0:
-            # no constrained coordinate: one refined KKT solve is the solve
-            return _solve_reduced_k0(self.inp, s, o, static=True)
-        cache = (self.cache if warm_start and self.cache is not None
-                 else OperatorCache())
-        return _prepare_reduced(
-            self.inp, self.warm if warm_start else None, s, o, warm_start,
-            self.con_idx, kkt_seed=cache.kkt_seed, scales=cache.scales,
-            static=True)
+        return self.stages.prepare(
+            self.inp, self.warm if warm_start else None,
+            self.cache if warm_start else None, warm_start)
 
     def _iterate(self, prep, warm_start: bool):
         """The iteration stage: ``(solution, warm[, cache])``."""
-        if len(self.con_idx) == 0:
-            return prep + (OperatorCache(),) if self.with_cache else prep
-        cache = (self.cache if warm_start and self.cache is not None
-                 else OperatorCache())
-        return _iterate_reduced(
-            self.inp, prep, self.shape, self.opts, self.con_idx,
-            polish_seed=cache.polish_seed, polish_cls=cache.polish_cls,
-            with_cache=self.with_cache, static=True)
+        return self.stages.iterate(
+            self.inp, prep, self.warm if warm_start else None,
+            self.cache if warm_start else None, warm_start)
 
     def _targets(self):
         return ((self.out, self.warm, self.cache) if self.with_cache
@@ -447,11 +440,6 @@ class CapturedBatch:
             self.warm = _copy(outputs[1])
         if self.with_cache and self.cache is None:
             self.cache = _copy(outputs[2])
-
-    def _solve_uncaptured(self, warm_start: bool) -> None:
-        outputs = self._iterate(self._prepare(warm_start), warm_start)
-        self._keep(outputs)
-        _store(self._targets(), outputs)
 
     # -- capture and replay -------------------------------------------
     def _capture(self, warm_start: bool) -> None:
@@ -538,29 +526,29 @@ def _copy(x):
     return _rebuild(x, iter([a.clone() for a in _leaves(x, [])]))
 
 
-def captured_batch(shape: ProblemShape, opts: FCCQPOptions, con_idx,
-                   B: int, device, with_cache: bool = False) -> CapturedBatch:
-    """The `CapturedBatch` of this configuration, made at its first use;
-    the least recently used of more than `MAX_CAPTURES` is dropped."""
-    key = (shape, opts, tuple(con_idx), B, with_cache, device_key(device))
+def captured_batch(stages: Stages, B: int, device) -> CapturedBatch:
+    """The `CapturedBatch` of this engine configuration, batch size and
+    device, made at its first use; the least recently used of more than
+    `MAX_CAPTURES` is dropped."""
+    key = (stages.key, B, device_key(device))
     if key in _CAPTURES:
         _CAPTURES.move_to_end(key)
     else:
-        _CAPTURES[key] = CapturedBatch(shape, opts, con_idx, B, device,
-                                       with_cache=with_cache)
+        _CAPTURES[key] = CapturedBatch(stages, B, device)
         if len(_CAPTURES) > MAX_CAPTURES:
             _CAPTURES.popitem(last=False)
     return _CAPTURES[key]
 
 
-def solve_captured(qp: QPBatchDS, shape: ProblemShape, opts: FCCQPOptions,
-                   warm: Optional[WarmStartDS], warm_start: bool, con_idx,
-                   device):
-    """`core.ds_engine.solve_batched_ds` on the card, reduced path: the
-    batch (and warm state) copied into the capture's buffers, a replay,
-    the results copied out. ``factorization_time`` is the operator
+def solve_captured(stages: Stages, qp, warm, warm_start: bool, device):
+    """A batched solve on the card through its capture (the entry points'
+    captured form: `solve_batched_ds`, `solve_batched_fast`,
+    `solve_batched`): the batch (and warm state) copied into the
+    capture's buffers, a replay, the results copied out (so that callers
+    of the same capture, the shards of a split batch among them, never
+    see each other's buffers). ``factorization_time`` is the operator
     graph's span and ``solve_time`` both graphs', from CUDA events."""
-    cap = captured_batch(shape, opts, con_idx, qp.batch, device)
+    cap = captured_batch(stages, _batch(qp), device)
     cap.load(qp)
     if warm_start:
         if warm is None:
@@ -576,18 +564,26 @@ def solve_captured(qp: QPBatchDS, shape: ProblemShape, opts: FCCQPOptions,
                                  ev[0].elapsed_time(ev[1]) * 1e-3), ws)
 
 
-def replay_captured(log: QPBatchDS, shape: ProblemShape, opts: FCCQPOptions,
-                    con_idx, device):
-    """`core.ds_engine.replay_ds_streams` on the card, reduced path, over
-    the step-major ``log`` (element ``[t, ..., s]`` is stream s's step
-    t): step 0 replays the cold graphs of the stream batch, each later
-    step copies its slice into the input buffers and replays the warm
-    graphs, which read and rewrite the warm state and the operator cache
-    in place. Nothing is read back between steps. Returns ``(per-step
-    solutions, final warm state, wall seconds, step 0's operator-graph
-    seconds)``."""
-    steps, S = log.b.shape[0], log.b.shape[-1]
-    cap = captured_batch(shape, opts, con_idx, S, device, with_cache=True)
+def _batch(qp) -> int:
+    """The batch size of ``qp``: batch-last for the ds engines
+    (`QPBatchDS`), batch-leading otherwise."""
+    b = qp.b
+    return b.shape[-1] if isinstance(qp, QPBatchDS) else b.shape[0]
+
+
+def replay_captured(stages: Stages, log, device):
+    """A warm-chained replay on the card through the capture of
+    ``stages``, over the step-major ``log`` (element ``[t]`` of each
+    field is step t's batch in the stages' layout): step 0 replays the
+    cold graphs, each later step copies its slice into the input buffers
+    and replays the warm graphs, which read and rewrite the warm state
+    (and the operator cache) in place. Nothing is read back between
+    steps. Returns ``(per-step solutions, final warm state, wall seconds,
+    step 0's operator-graph seconds)``."""
+    fields = _leaves(log, [])
+    steps = fields[0].shape[0]
+    step = lambda t: _rebuild(log, iter([a[t] for a in fields]))
+    cap = captured_batch(stages, _batch(step(0)), device)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
@@ -595,7 +591,7 @@ def replay_captured(log: QPBatchDS, shape: ProblemShape, opts: FCCQPOptions,
     for t in range(steps):
         name = "replay_step0" if t == 0 else "replay_warm_step"
         with torch.profiler.record_function(name):
-            cap.load(QPBatchDS(*(a[t] for a in log)))
+            cap.load(step(t))
             if t == 0:
                 ev[0].record()
                 cap.run(False, between=ev[1].record)

@@ -20,10 +20,13 @@ one launch equals that chunked loop bit for bit and is faster on the
 card (`exp_single_launch.py`).
 
 With ``static=True`` (`_solve_core`; the form `core.graphs` captures as
-a CUDA graph) the solve also reads nothing back outside the loop: the
-factorization's shift levels are all computed and selected on the
-device, and the equality-only presolve is computed whenever the shape
-allows it.
+CUDA graphs, `parity_stages`) the solve also reads nothing back outside
+the loop: the factorization's shift levels and refinement and the
+equality-only presolve are branches on their device flags
+(`ops.device_branch.branch`: IF nodes under a capture, computed and
+selected otherwise). On the card `solve_batched` and `replay` run
+captured at any batch size (`core.graphs.solve_captured`,
+`replay_captured`), as `FCCQP` does at B = 1.
 
 Data is batch-LEADING `types.QPBatch` (`solve` takes one instance,
 `solve_batched` a batch); the loop's state is batch-last, as the kernel
@@ -47,7 +50,8 @@ from typing import Optional
 import torch
 
 from fcc_qp_tpu_torch.config import FCCQPOptions, ProblemShape
-from fcc_qp_tpu_torch.core.ds_engine import resolve_device
+from fcc_qp_tpu_torch.core.ds_engine import Stages, resolve_device, zero_batch
+from fcc_qp_tpu_torch.ops.device_branch import branch
 from fcc_qp_tpu_torch.ops.kkt import admm_operator, kkt_solve
 from fcc_qp_tpu_torch.ops.pallas_admm import (
     GATE_ALL,
@@ -175,9 +179,11 @@ def _solve_core(qp: QPBatch, shape: ProblemShape, opts: FCCQPOptions,
         eq_c = torch.zeros((B,), dtype=torch.bool, device=dev)
     if warm_start:
         x_init = warm.x
-        if nc == 0 and (static or bool(eq_c.any())):
-            x_init = torch.where(eq_c[:, None], _presolve(qp, static),
-                                 warm.x)
+        if nc == 0:
+            (x_init,) = branch(
+                eq_c.any() if static else bool(eq_c.any()),
+                lambda x: (torch.where(eq_c[:, None], _presolve(qp, static),
+                                       x),), x_init)
     else:
         x_init = _presolve(qp, static)
     if operator is None:
@@ -190,6 +196,20 @@ def _solve_core(qp: QPBatch, shape: ProblemShape, opts: FCCQPOptions,
     details = _details(x, qp, shape, n_iter, xrn, lrn, opts.max_iter)
     return (FCCQPSolution(details=details, z=x),
             WarmStart(x=x, mu_x=mu_x, mu_lambda_c=mu_lam))
+
+
+def parity_stages(shape: ProblemShape, opts: FCCQPOptions,
+                  dtype=torch.float64) -> Stages:
+    """The parity engine's static stage pair on ``dtype`` data (the form
+    `core.graphs.CapturedBatch` captures): the operator, then the rest of
+    `_solve_core`."""
+    return Stages(
+        ("parity", shape, opts, dtype),
+        lambda B, dev: zero_batch(shape, B, dev, dtype, batch_last=False),
+        lambda qp, warm, cache, warm_start: admm_operator(
+            qp.Q, qp.b, qp.A_eq, qp.b_eq, opts.rho, static=True),
+        lambda qp, prep, warm, cache, warm_start: _solve_core(
+            qp, shape, opts, warm, warm_start, prep, static=True))
 
 
 def solve(qp: QPBatch, shape: ProblemShape,
@@ -221,22 +241,33 @@ def solve(qp: QPBatch, shape: ProblemShape,
 def solve_batched(qp: QPBatch, shape: ProblemShape,
                   opts: FCCQPOptions = FCCQPOptions(),
                   warm: Optional[WarmStart] = None, warm_start: bool = False,
-                  device=None):
+                  device=None, graphs: Optional[bool] = None):
     """Solve a batch of independent QPs (leading batch axis B): the
     replacement for looping the reference's Solve. Each instance gets the
     result of its own serial solve.
 
     Runs on ``device`` (default CUDA; raises when there is no card), in
-    the data's dtype (f32 or f64). The operator build and the solve are
-    timed apart: ``details.solve_time`` is the wall of the whole call and
-    ``details.factorization_time`` the operator build within it, each
-    span ending in a device synchronize. Returns ``(FCCQPSolution,
-    WarmStart)``, batch-leading."""
+    the data's dtype (f32 or f64). On the card the solve runs captured
+    (`parity_stages`, `core.graphs.solve_captured`: the first call of
+    each configuration, dtype, batch size and ``warm_start`` captures
+    it, every call replays it); ``graphs=False`` runs it uncaptured. The
+    operator build and the solve are timed apart: ``details.solve_time``
+    is the span of the whole solve and ``details.factorization_time`` the
+    operator build's (CUDA events around the replays; uncaptured, wall
+    spans each ending in a device synchronize). Returns
+    ``(FCCQPSolution, WarmStart)``, batch-leading."""
     dev = resolve_device(device)
     dt = compute_dtype(qp)
     qp = qp.to(dev, dt)
     if warm is not None:
         warm = warm.to(dev, dt)
+    if graphs and dev.type != "cuda":
+        raise ValueError("CUDA graphs need a CUDA device")
+    if dev.type == "cuda" and graphs is not False:
+        from fcc_qp_tpu_torch.core.graphs import solve_captured
+
+        return solve_captured(parity_stages(shape, opts, dt), qp, warm,
+                              warm_start, dev)
     sync(dev)
     t0 = time.perf_counter()
     operator = admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, opts.rho)
@@ -249,21 +280,38 @@ def solve_batched(qp: QPBatch, shape: ProblemShape,
 
 
 def replay(qps: QPBatch, shape: ProblemShape,
-           opts: FCCQPOptions = FCCQPOptions(), device=None):
+           opts: FCCQPOptions = FCCQPOptions(), device=None,
+           graphs: Optional[bool] = None):
     """Sequential warm-started replay of a logged QP sequence (leading
     time axis T; a batch axis may follow it): step 0 cold, every later
     step warm-started from the one before, as the reference loop does
     with ``set_warm_start(i > 0)``. Computes in the data's dtype (f32 or
-    f64). Returns ``(solutions stacked over T, final WarmStart)``."""
+    f64). On the card the replay runs captured (the JAX package's
+    ``lax.scan``: `core.graphs.replay_captured` replays the cold graphs
+    of `parity_stages` at step 0 and the warm graphs at every later step,
+    the warm state in static buffers, no host read between steps);
+    ``graphs=False`` runs the steps uncaptured. Returns ``(solutions
+    stacked over T, final WarmStart)``."""
     dev = resolve_device(device)
-    qps = qps.to(dev, compute_dtype(qps))
-    fields = list(qps.__dict__.values())
+    dt = compute_dtype(qps)
+    qps = qps.to(dev, dt)
     single = qps.b.dim() == 2
-    sols, ws = [], None
-    for t in range(qps.b.shape[0]):
-        qp_t = QPBatch(*(a[t][None] if single else a[t] for a in fields))
-        sol, ws = _solve_core(qp_t, shape, opts, ws, t > 0)
-        sols.append(sol)
+    if single:
+        qps = QPBatch(*(a[:, None] for a in qps.__dict__.values()))
+    if graphs and dev.type != "cuda":
+        raise ValueError("CUDA graphs need a CUDA device")
+    if dev.type == "cuda" and graphs is not False:
+        from fcc_qp_tpu_torch.core.graphs import replay_captured
+
+        sols, ws, _, _ = replay_captured(parity_stages(shape, opts, dt),
+                                         qps, dev)
+    else:
+        fields = list(qps.__dict__.values())
+        sols, ws = [], None
+        for t in range(qps.b.shape[0]):
+            sol, ws = _solve_core(QPBatch(*(a[t] for a in fields)), shape,
+                                  opts, ws, t > 0)
+            sols.append(sol)
     pick = (lambda a: a[0]) if single else (lambda a: a)
     det = FCCQPDetails(**{
         k: torch.stack([pick(getattr(s.details, k)) for s in sols])

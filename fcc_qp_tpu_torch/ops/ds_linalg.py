@@ -387,6 +387,15 @@ def _chol_inverse(L: torch.Tensor) -> torch.Tensor:
     return Linv.transpose(-1, -2) @ Linv
 
 
+def chol_solve(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """``(L L')^{-1} R`` from the batched lower factor L by two batched
+    triangular solves (cuBLAS on the card; the library's
+    `cholesky_solve` runs one cuSOLVER call per instance there, as
+    `cholesky_inverse` does)."""
+    Y = torch.linalg.solve_triangular(L, R, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), Y, upper=True)
+
+
 def kkt_inverse_blocks_refined_ds(
     Q: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, refine_steps: int = 1,
     static: bool = False,
@@ -442,12 +451,12 @@ def kkt_solve_refined_ds(Q: torch.Tensor, A: torch.Tensor, r: torch.Tensor,
     L, _ = _chol_regularized(Qs + (delta_rel * scale)[:, None, None] * eye,
                              static)
     At = As.transpose(1, 2)
-    W = torch.cholesky_solve(At, L)                  # (B, n, m)
+    W = chol_solve(L, At)                            # (B, n, m)
     Ls, _ = _chol_regularized(As @ W, static)
 
     def solve_delta(rv, sv):
-        u = torch.cholesky_solve(rv, L)
-        y = torch.cholesky_solve(As @ u - sv, Ls)
+        u = chol_solve(L, rv)
+        y = chol_solve(Ls, As @ u - sv)
         return u - W @ y, y
 
     x, y = solve_delta(rs, ss)

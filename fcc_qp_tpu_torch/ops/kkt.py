@@ -22,17 +22,24 @@ by refinement against the true KKT.
 
 All functions are batch-LEADING f64 (``(B, n, n)``, ``(B, n)``): the JAX
 package writes them for one instance and vmaps them. `torch.linalg.
-cholesky_ex` and `torch.cholesky_solve` are library factorizations, as
-the JAX package leaves them to XLA.
+cholesky_ex` is the library factorization, as the JAX package leaves it
+to XLA; the solves with its factors are batched triangular solves
+(`ops.ds_linalg.chol_solve`, `_chol_inverse`), because the library's
+`cholesky_solve` runs one cuSOLVER call per instance on the card.
 
 ``static=True`` makes a function read-free (the form a CUDA graph can
-hold): every shift level is factored and the refinement always runs,
-each selected on the device; the results are the eager ones bit for bit.
+hold): each shift level after the first and the refinement is a
+`ops.device_branch.branch` on its device flag (an IF node under a
+capture, computed and selected otherwise); the results are the eager
+ones bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
+
+from fcc_qp_tpu_torch.ops.device_branch import branch
+from fcc_qp_tpu_torch.ops.ds_linalg import _chol_inverse, chol_solve
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -70,8 +77,9 @@ def _chol_or_regularized(M: torch.Tensor, return_shifted: bool = False,
     positive one would pass as a finite factor of infinite condition.
     Instances that fail at every shift get zeros. With
     ``return_shifted`` also returns the per-instance flag that a shift
-    was taken (or all failed). ``static``: every shift level is factored
-    (no host read ends the escalation)."""
+    was taken (or all failed). ``static``: each level after the first is
+    a branch on whether any instance still needs it (no host read ends
+    the escalation)."""
     B, n, _ = M.shape
     eps = torch.finfo(M.dtype).eps
     scale = torch.clamp_min(M.abs().amax(dim=(-1, -2)), 1.0)
@@ -85,26 +93,31 @@ def _chol_or_regularized(M: torch.Tensor, return_shifted: bool = False,
               & (dg * dg > floor[:, None]).all(dim=-1))
         return L, ok
 
-    L = torch.zeros_like(M)
-    ok = torch.zeros((B,), dtype=torch.bool, device=M.device)
-    attempts = torch.zeros((B,), dtype=torch.int32, device=M.device)
-    for mult in (0.0, 1e2, 1e5, 1e8):
+    def level(L, ok, attempts, mult):
         need = ~ok
-        if not static and not bool(need.any()):
-            break
         Lk, okk = factor(scale * eps * mult)
-        L = torch.where(need[:, None, None], Lk, L)
-        ok = ok | (need & okk)
-        attempts = attempts + need.int()
+        return (torch.where(need[:, None, None], Lk, L), ok | (need & okk),
+                attempts + need.int())
+
+    # the unshifted factor: every instance needs it
+    L, ok, attempts = level(
+        torch.zeros_like(M), torch.zeros((B,), dtype=torch.bool,
+                                         device=M.device),
+        torch.zeros((B,), dtype=torch.int32, device=M.device), 0.0)
+    for mult in (1e2, 1e5, 1e8):
+        need = ~ok
+        if static:
+            L, ok, attempts = branch(
+                need.any(), lambda *c, m=mult: level(*c, m), L, ok, attempts)
+        elif bool(need.any()):
+            L, ok, attempts = level(L, ok, attempts, mult)
+        else:
+            break
     L = torch.where(ok[:, None, None], L, torch.zeros_like(L))
     if return_shifted:
         # one attempt means the unshifted factor succeeded
         return L, (attempts > 1) | ~ok
     return L
-
-
-def _cho_solve(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
-    return torch.cholesky_solve(R, L, upper=False)
 
 
 def kkt_factor_blocks(Q: torch.Tensor, A_eq: torch.Tensor, rho,
@@ -114,35 +127,38 @@ def kkt_factor_blocks(Q: torch.Tensor, A_eq: torch.Tensor, rho,
     M^{-1}[:n, n:]`` (B, n, m). Instances whose factors took a shift are
     refined by four fixed-preconditioner Richardson steps against the
     true KKT (the shift's null-space error stays in the dual-dual block,
-    which F and G never read; ``static``: the refinement always runs)."""
+    which F and G never read; ``static``: a branch on whether any
+    instance took a shift)."""
     B, n, _ = Q.shape
     m = A_eq.shape[-2]
     H = Q + _rho_col(rho, Q) * _eye(n, Q)
     L_H, sh_H = _chol_or_regularized(H, return_shifted=True, static=static)
-    Hinv = _cho_solve(L_H, _eye(n, Q).expand(B, n, n))
+    Hinv = _chol_inverse(L_H)
     At = A_eq.transpose(-1, -2)
-    W = _cho_solve(L_H, At)
+    W = chol_solve(L_H, At)
     S = A_eq @ W
     L_S, sh_S = _chol_or_regularized(S, return_shifted=True, static=static)
-    T = _cho_solve(L_S, W.transpose(-1, -2))          # (B, m, n)
+    T = chol_solve(L_S, W.transpose(-1, -2))          # (B, m, n)
     F = Hinv - W @ T
     G = T.transpose(-1, -2)
     sh = sh_H | sh_S
-    if static or bool(sh.any()):
-        Sinv = _cho_solve(L_S, _eye(m, Q).expand(B, m, m))
+
+    def refine(F, G):
         X0 = torch.cat([torch.cat([F, G], dim=-1),
-                        torch.cat([T, -Sinv], dim=-1)], dim=-2)
+                        torch.cat([T, -_chol_inverse(L_S)], dim=-1)], dim=-2)
         M = assemble_kkt(Q, A_eq, rho)
         eyeN = _eye(n + m, Q)
         X = X0
         for _ in range(4):
             X = X + X0 @ (eyeN - M @ X)
         sel = sh[:, None, None]
-        F = torch.where(sel, X[:, :n, :n], F)
-        G = torch.where(sel, X[:, :n, n:], G)
-    # row-major whichever block was taken (the library factorization
-    # leaves F column-major, a selection row-major), so that the products
-    # reading F and G round alike on every path, a static solve's included
+        return (torch.where(sel, X[:, :n, :n], F),
+                torch.where(sel, X[:, :n, n:], G))
+
+    F, G = branch(sh.any() if static else bool(sh.any()), refine, F, G)
+    # row-major whichever block was taken (a selection is row-major, G a
+    # transposed view), so that the products reading F and G round alike
+    # on every path, a static solve's included
     return F.contiguous(), G.contiguous()
 
 
@@ -151,31 +167,35 @@ def kkt_solve(Q: torch.Tensor, A_eq: torch.Tensor, rho, r: torch.Tensor,
     """Solve ``[[Q + rho*I, A'],[A, 0]] [x; y] = [r; s]`` for x (B, n):
     the single right-hand-side Schur solve of the presolve. Instances
     whose factors took a shift get four vector refinement steps against
-    the true KKT (``static``: computed always, selected per instance)."""
+    the true KKT (``static``: a branch on whether any instance took a
+    shift, selected per instance)."""
     n = Q.shape[-1]
     H = Q + _rho_col(rho, Q) * _eye(n, Q)
     L_H, sh_H = _chol_or_regularized(H, return_shifted=True, static=static)
     mv = lambda M_, v_: (M_ @ v_[..., None])[..., 0]
     At = A_eq.transpose(-1, -2)
-    W = _cho_solve(L_H, At)
+    W = chol_solve(L_H, At)
     S = A_eq @ W
     L_S, sh_S = _chol_or_regularized(S, return_shifted=True, static=static)
 
     def solve_once(rv, sv):
-        u = _cho_solve(L_H, rv[..., None])[..., 0]
-        y = _cho_solve(L_S, (mv(A_eq, u) - sv)[..., None])[..., 0]
+        u = chol_solve(L_H, rv[..., None])[..., 0]
+        y = chol_solve(L_S, (mv(A_eq, u) - sv)[..., None])[..., 0]
         return u - mv(W, y), y
 
     x, y = solve_once(r, s)
     sh = sh_H | sh_S
-    if static or bool(sh.any()):
+
+    def refine(x):
         xv, yv = x, y
         for _ in range(4):
             rr = r - (mv(H, xv) + mv(At, yv))
             rs = s - mv(A_eq, xv)
             dx, dy = solve_once(rr, rs)
             xv, yv = xv + dx, yv + dy
-        x = torch.where(sh[:, None], xv, x)
+        return (torch.where(sh[:, None], xv, x),)
+
+    (x,) = branch(sh.any() if static else bool(sh.any()), refine, x)
     return x
 
 

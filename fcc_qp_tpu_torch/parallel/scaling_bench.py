@@ -111,8 +111,7 @@ def run_overhead_probe(shape: ProblemShape, qp_ds: QPBatchDS,
     dev = make_mesh([device] if device is not None else None)[0]
     qp_dev = QPBatchDS(*(a.to(dev) for a in qp_ds))
     t_plain, (sol, _) = _timed(
-        lambda: solve_batched_ds(qp_dev, shape, opts, device=dev,
-                                 graphs=False), [dev],
+        lambda: solve_batched_ds(qp_dev, shape, opts, device=dev), [dev],
         repeats)
     t_entry, _ = _timed(
         lambda: solve_batched_ds_sharded(qp_ds, shape, opts, mesh=[dev]),

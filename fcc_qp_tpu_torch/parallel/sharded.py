@@ -6,9 +6,11 @@ repeated), split into equal shards, each shard solved on its device, the
 padding stripped and the shards gathered in batch order on the mesh's
 first device. `BatchSummary` aggregates the stripped solution.
 
-In one process the shards are solved one after another (each engine
-reads the device between chunks, so a single host thread does not overlap
-them). Several processes (one per card, joined with
+In one process the shards are solved one after another. On the card each
+shard replays its engine's captured solve (`core.graphs.solve_captured`:
+shards of the same size on the same device share one capture, and each
+shard's result is copied out of the capture's buffers before the next
+shard runs). Several processes (one per card, joined with
 `mesh.init_distributed`) split the batch over ranks first: rank r solves
 the global shards of its rank, `local_rows` says which instances those
 are, and the summary's sums and maxima go through
@@ -228,10 +230,9 @@ def solve_batched_ds_sharded(
                                       full=opts.splitting == "full")
 
     def run(q, w, d):
-        # uncaptured: the sharded solves are not captured yet
         sol, ws = solve_batched_ds(q, shape, opts, warm=w,
                                    warm_start=warm_start, device=d,
-                                   con_idx=con_idx, graphs=False)
+                                   con_idx=con_idx)
         # the solution is batch-leading: carry it batch-last like the rest
         return map_tree(lambda a: a.movedim(0, -1) if a.dim() else a,
                         sol), ws
