@@ -194,7 +194,27 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    8192 and 8191: equal to the unsharded solve (n_iter, statuses, |dz|
    <= 1e-8 ds / 1e-10 f64) with equal summary aggregates; then
    `parallel.scaling_bench` over one and two shards at the bench flags.
-18. One JSON line with a record per kernel (the first chunk's numbers
+18. The bench entry point (`fcc_qp_tpu_torch.bench.run`, as ``python -m
+   fcc_qp_tpu_torch.bench --model <name>`` runs it) for the quadruped and
+   the humanoid at the bench defaults (cold B = 8192 of the walking log,
+   the replay of 4096 streams x 16 steps, captured) and for Cassie at one
+   repeat (`entry_phase`), each counted from zero over its run: the
+   record line, each capture's census (warm-up, capture and instantiate
+   seconds, nodes by type, IF nodes, hand kernels per graph) and the
+   run's peak memory. Checks per model: the record's keys; no
+   kFactorizationFailed, no NaN; kSuccess residuals <= 1e-6; the equality
+   bars of phases 2 and 5; the kSuccess shares of the cold solve's first
+   512 instances and of all 8192, and of the replay's first 64 streams,
+   and the warm polish acceptance there, at least the JAX package's on
+   the same instances less 1% (`ENTRY_JAX`); warm n_iter p50 <= 15; both reduced
+   kernels launched. Cassie's replay equals phase 5's captured replay
+   bit for bit (status, n_iter, z). For the quadruped (k = 24) and the
+   humanoid (k = 47), each reduced kernel against its plain version bit
+   for bit on an all-active first chunk, the bench solve's last chunk
+   with an iterating instance (the stragglers) and a warm step's last
+   chunk, timed with bounds (``*_quad``, ``*_hum``, ``*_tail_quad``,
+   ``*_warm_hum``, ... keys).
+19. One JSON line with a record per kernel (the first chunk's numbers
    under the plain keys, the straggler chunk's under ``*_tail``, the
    humanoid's under ``*_k47`` / ``*_k76`` / ``*_n76``, the warm step's
    under ``*_warm``, the drop-in chunk's under ``*_b1``, alpha = 1.6's
@@ -211,7 +231,9 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    full-layout kernels ``launches_per_full_graph``, ``_fast_graph``,
    ``_f32_graph``, ``_parity_replay`` and ``_shard_graph`` in one replay
    of the graph pair of phases 6, 13, 14, 15 and 17, each counted under
-   capture: an IF body's kernels count whether or not it runs), the
+   capture: an IF body's kernels count whether or not it runs;
+   ``launches_entry`` per model of phase 18 and
+   ``launches_per_entry_graph`` in one replay of each of its graphs), the
    `nvidia-smi` line, and the final JSON status line.
 
 Also printed: the bench solve's host seconds per chunk (the approach and
@@ -765,7 +787,7 @@ def replay_phase(engine, bench):
     # a recorded (uncaptured) replay, not counted, keeps each kernel's
     # last warm chunk
     _, rec = recorded_solve(engine, lambda: replay(graphs=False))
-    return launches, rec, stacked, final_warm, report
+    return launches, rec, stacked, final_warm, report, sols
 
 
 # the JAX bench's flags (bench.py:191-200) for the cold batch and the
@@ -2770,6 +2792,277 @@ def sharded_phase(stacked, walking, bench, dev=None):
         + json.dumps(sweep["results"]))
     return launches, times, sweep, graphs
 
+# the bench entry point (phase 18): the models it runs, with their flags:
+# the quadruped and the humanoid at the defaults, Cassie (whose path
+# phases 2 and 5 time) at one repeat
+ENTRY_RUNS = (("quadruped", []), ("humanoid", []),
+              ("cassie", ["--repeats", "1"]))
+# the record's keys: the JAX bench's with the replay (bench.py:266-342),
+# and the port's "engine" and "device"
+ENTRY_KEYS = {"metric", "unit", "model", "cold_solves_per_sec",
+              "cold_pipelined_solves_per_sec", "cold_converged_pct",
+              "cold_polish_accept_pct", "value", "warm_iters_p50",
+              "replay_converged_pct", "replay_T", "warm_polish_accept_pct",
+              "vs_baseline", "engine", "device"}
+# the JAX package on the CPU at the bench flags with the model's polish
+# Newton steps, on the bench's walking log (exp_full_reference.py,
+# sections bench_<model> and bench_<model>8192): kSuccess of the cold
+# solve of its first 512 steps (the first 512 instances of the bench's
+# cold batch) and of all 8192, and kSuccess and warm polish acceptance of
+# its steps 0-1023 replayed as 64 streams x 16 steps (the first 64
+# streams of the bench's replay), as (count, of). The card's shares on
+# the same instances must reach them less 1%
+ENTRY_COLD_FIRST, ENTRY_STREAMS = 512, 64
+ENTRY_JAX = {
+    "cassie": dict(cold=(512, 512), cold_all=(8192, 8192),
+                   replay=(1024, 1024), warm_accept=(960, 960)),
+    "quadruped": dict(cold=(503, 512), cold_all=(7794, 8192),
+                      replay=(1023, 1024), warm_accept=(950, 960)),
+    "humanoid": dict(cold=(512, 512), cold_all=(8192, 8192),
+                     replay=(1024, 1024), warm_accept=(956, 960)),
+}
+# the record keys of phase 18's kernel cases, per model
+ENTRY_SUFFIX = {"quadruped": "quad", "humanoid": "hum"}
+
+
+def entry_captures(before):
+    """The captures made since the key set ``before`` of
+    `core.graphs._CAPTURES`: {"cold" | "replay": {"cold" | "warm":
+    capture_report}}."""
+    from fcc_qp_tpu_torch.core import graphs
+
+    out = {}
+    for key in set(graphs._CAPTURES) - before:
+        cap = graphs._CAPTURES[key]
+        out["replay" if cap.with_cache else "cold"] = {
+            ("warm" if w else "cold"): capture_report(cap, w)
+            for w in sorted(cap._captured)}
+    return out
+
+
+def entry_checks(name, record, sol, sols, stacked, opts, steps):
+    """Phase 18's bars on one model's bench run: the record's keys; no
+    kFactorizationFailed, no NaN, finite solutions of the expected
+    shapes; kSuccess residuals <= 1e-6; the equality bars of phases 2 and
+    5; the JAX package's shares on the same instances (`ENTRY_JAX`) less
+    1%; warm n_iter p50 <= 15. Returns the shares."""
+    import numpy as np
+
+    check(set(record) == ENTRY_KEYS, f"entry:{name}: record keys "
+          f"{sorted(record)}")
+    q = lambda t: t.cpu().numpy()
+    n = stacked["b"].shape[1]
+    jax = ENTRY_JAX[name]
+    shares = {}
+    for part, s in (("cold", sol), ("replay", sols)):
+        rows = len(q(s.details.solve_status))
+        tag = f"entry:{name}:{part}"
+        b_eq = np.abs(stacked["b_eq"][:rows]).max(axis=1)
+        d = s.details
+        st, eqv = q(d.solve_status), q(d.equality_viol)
+        ok, acc = st == 0, q(d.polish_accepted) > 0
+        z = q(s.z)
+        check(z.shape == (rows, n) and np.isfinite(z).all(),
+              f"{tag}: solution not finite or of the wrong shape")
+        check((st != 2).all(), f"{tag}: kFactorizationFailed")
+        res = np.maximum(q(d.admm_residual_bounds),
+                         q(d.admm_residual_friction_cone))
+        check(not np.isnan(res).any(), f"{tag}: NaN residuals")
+        check((res[ok] <= 1e-6).all(), f"{tag}: kSuccess residual above 1e-6")
+        check((eqv[ok] <= 1e-8 * (1.0 + b_eq[ok])).all(),
+              f"{tag}: relative equality residual above 1e-8 on kSuccess")
+        # polish-accepted cold solves (and replay steps 0) to 1e-8; a warm
+        # step accepted by the polish to its acceptance test's eps_bound
+        # (phase 5; ROADMAP.md queue C)
+        cold_row = (np.ones(rows, bool) if part == "cold"
+                    else np.arange(rows) % steps == 0)
+        check((eqv[ok & acc & cold_row] <= 1e-8).all(),
+              f"{tag}: equality residual above 1e-8 on a polish-accepted "
+              "cold solve")
+        check((eqv[ok & acc] <= opts.eps_bound).all(),
+              f"{tag}: equality residual above eps_bound on a "
+              "polish-accepted step")
+        held = ENTRY_COLD_FIRST if part == "cold" else ENTRY_STREAMS * steps
+        count, of = jax[part]
+        check(held <= rows and of == held, f"{tag}: {rows} rows")
+        shares[part] = float(ok.mean())
+        shares[f"{part}_held"] = float(ok[:held].mean())
+        check(shares[f"{part}_held"] >= count / of - 0.01,
+              f"{tag}: kSuccess {shares[f'{part}_held']:.4%} on the first "
+              f"{held} < the JAX package's {count / of:.4%} less 1%")
+        if part == "cold":
+            count, of = jax["cold_all"]
+            check(of == rows and shares["cold"] >= count / of - 0.01,
+                  f"{tag}: kSuccess {shares['cold']:.4%} of {rows} < the "
+                  f"JAX package's {count / of:.4%} less 1%")
+    acc = q(sols.details.polish_accepted).reshape(-1, steps)[:, 1:] > 0
+    count, of = jax["warm_accept"]
+    shares["warm_accept"] = float(acc.mean())
+    shares["warm_accept_held"] = float(acc[:ENTRY_STREAMS].mean())
+    check(acc[:ENTRY_STREAMS].size == of
+          and shares["warm_accept_held"] >= count / of - 0.01,
+          f"entry:{name}: warm polish acceptance "
+          f"{shares['warm_accept_held']:.4%} on the first {ENTRY_STREAMS} "
+          f"streams < the JAX package's {count / of:.4%} less 1%")
+    check(record["warm_iters_p50"] <= 15,
+          f"entry:{name}: warm n_iter p50 {record['warm_iters_p50']}")
+    return shares
+
+
+def entry_logs(cache_dir):
+    """Phase 18's walking logs for the models other than Cassie (whose log
+    is phase 5's), generated on the host and cached under the bench's
+    names in ``cache_dir``, one process a model (one BLAS thread each),
+    all started together and waited for. Returns the seconds it took."""
+    code = ("import sys\n"
+            "from fcc_qp_tpu_torch import bench\n"
+            "args = bench.parse_args(['--model', sys.argv[2]])\n"
+            "bench.walking_log(args, bench.sizes(args)[1], sys.argv[1])\n")
+    one = {k: "1" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                            "MKL_NUM_THREADS")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, cache_dir, m],
+                              cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT,
+                                                 **one))
+             for m, _ in ENTRY_RUNS if m != "cassie"]
+    codes = [p.wait() for p in procs]
+    check(codes == [0] * len(procs), f"entry: the walking logs were not "
+          f"generated (exit codes {codes})")
+    return time.perf_counter() - t0
+
+
+def entry_phase(engine, specs, cassie_log, cassie_replay):
+    """Phase 18: the bench entry point (`fcc_qp_tpu_torch.bench.run`, as
+    ``python -m fcc_qp_tpu_torch.bench --model <name>`` runs it) for each
+    of `ENTRY_RUNS`, its log cached in a directory of this run
+    (`entry_logs`; Cassie's is phase 5's log, saved under the bench's
+    cache name). Per model:
+    counted from zero over the run; its record line; each capture's
+    census (seconds, nodes by type, IF nodes, hand kernels per graph) and
+    the run's peak memory; `entry_checks`; both reduced kernels launched.
+    Cassie's replay equals phase 5's captured replay bit for bit (status,
+    n_iter, z). For the quadruped and the humanoid, each reduced kernel
+    against its plain version bit for bit on an all-active first chunk
+    (f32: the bench solve's approach phase; f64: the endgame with no
+    approach phase), the bench solve's last chunk with an iterating
+    instance (the stragglers) and a warm replay step's last chunk, from
+    recorded (uncaptured) solves, timed with bounds. Returns ``(launches
+    per model, kernel cases {model: {kernel: {case: compare record}}},
+    report)``."""
+    import shutil
+
+    import torch
+
+    from fcc_qp_tpu_torch import bench as entry
+    from fcc_qp_tpu_torch import replay_ds_streams, solve_batched_ds
+    from fcc_qp_tpu_torch import to_ds_batch
+    from fcc_qp_tpu_torch.core import graphs
+    from fcc_qp_tpu_torch.models.osc import MODELS
+    from fcc_qp_tpu_torch.utils.io import save_qp_log_packed
+
+    cache_dir = os.path.join(ROOT, "test_data",
+                             f"chip_smoke_entry_{os.getpid()}")
+    os.makedirs(cache_dir, exist_ok=True)
+    launches, cases, report = {}, {}, {}
+    try:
+        log(f"[entry] walking logs generated in {entry_logs(cache_dir):.3f} "
+            "s (one process a model)")
+        for name, extra in ENTRY_RUNS:
+            argv = ["--model", name] + extra
+            args = entry.parse_args(argv)
+            cold_b, T = entry.sizes(args)
+            steps = args.steps
+            shape = MODELS[name].shape
+            t0 = time.perf_counter()
+            if name == "cassie":
+                stacked = cassie_log
+                save_qp_log_packed(os.path.join(
+                    cache_dir, f"id_qp_log_cassie_T{T}.fqlog"), stacked)
+            else:
+                stacked = entry.walking_log(args, T, cache_dir)
+            t_log = time.perf_counter() - t0
+            before = set(graphs._CAPTURES)
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            record, sol, sols = entry.run(argv, cache_dir=cache_dir)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[name] = counts()
+            peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+            census = entry_captures(before)
+            log(f"[entry:{name}] record: " + json.dumps(record))
+            log(f"[entry:{name}] the run {wall:.3f} s (the log ready in "
+                f"{t_log:.3f} s before it), peak {peak_gb:.3f} GB allocated; "
+                "launches " + json.dumps(launches[name]) + "; captures "
+                + json.dumps(census))
+            check(sorted(census) == ["cold", "replay"]
+                  and sorted(census["replay"]) == ["cold", "warm"],
+                  f"entry:{name}: the run did not capture its cold solve "
+                  f"and both replay kinds ({sorted(census)})")
+            for kname in REDUCED_KERNELS:
+                check(launches[name][kname] > 0,
+                      f"entry:{name}: {kname} was not launched")
+            opts = entry.options(args)
+            shares = entry_checks(name, record, sol, sols, stacked, opts,
+                                  steps)
+            log(f"[entry:{name}] shares (whole batch / replay, and on the "
+                "instances the JAX package was run on): " + json.dumps(shares))
+            report[name] = dict(record=record, wall_s=wall, log_s=t_log,
+                                peak_allocated_gb=peak_gb, captures=census,
+                                shares=shares)
+            if name == "cassie":
+                for f in ("solve_status", "n_iter"):
+                    check(torch.equal(getattr(sols.details, f),
+                                      getattr(cassie_replay.details, f)),
+                          f"entry:cassie: replay {f} differs from phase 5's")
+                check(torch.equal(sols.z, cassie_replay.z),
+                      "entry:cassie: replay z differs from phase 5's")
+                log("[entry:cassie] the entry's replay equals phase 5's "
+                    "captured replay bit for bit (status, n_iter, z)")
+                continue
+            # the kernels on this model's chunks, from recorded
+            # (uncaptured) solves, not counted
+            sub = lambda n: {k: v[:n] for k, v in stacked.items()}
+            qp = to_ds_batch(sub(cold_b))
+            _, rec_eg = recorded_solve(engine, lambda: solve_batched_ds(
+                qp, shape, opts.replace(polish=False, phase1_tol=0.0,
+                                        max_iter=64), graphs=False))
+            _, rec_b = recorded_solve(engine, lambda: solve_batched_ds(
+                qp, shape, opts, graphs=False))
+            reps = to_ds_batch(sub(T))
+            _, rec_r = recorded_solve(engine, lambda: replay_ds_streams(
+                reps, shape, opts, n_streams=args.batch, graphs=False))
+            del reps
+            firsts = {"admm_chunk_f64": rec_eg, "admm_chunk_f32": rec_b}
+            cases[name] = {}
+            for kname, kernel, plain, prec, _ in specs:
+                c = {}
+                for case, rec, which in (("first", firsts[kname], "first"),
+                                         ("tail", rec_b, "last_active"),
+                                         ("warm", rec_r, "last_warm")):
+                    got = getattr(rec[kname], which)
+                    if got is None:
+                        check(case == "warm" and kname == "admm_chunk_f64",
+                              f"entry:{name}: no {case} chunk of {kname}")
+                        log(f"[kernel] {kname}: not launched in a warm "
+                            f"{name} replay step")
+                        continue
+                    c[case] = compare(kname, f"{case}_{name}", kernel, plain,
+                                      *got, prec, exact=True)
+                check(c["first"]["active"] == cold_b,
+                      f"entry:{name}: {kname}'s first chunk is not all "
+                      "active")
+                check(c["tail"]["active"] > 0,
+                      f"entry:{name}: no instance iterates in {kname}'s "
+                      "last bench chunk")
+                cases[name][kname] = c
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    return launches, cases, report
+
 
 def main() -> int:
     import torch
@@ -2962,7 +3255,7 @@ def main() -> int:
 
     # 5. warm replay, and each kernel on its last warm-step chunk
     (launches_replay, rec_replay, log_stacked, replay_warm,
-     replay_graphs) = replay_phase(engine, bench)
+     replay_graphs, replay_sols) = replay_phase(engine, bench)
     for (name, kernel, plain, prec, _), r in zip(specs, records):
         r["launches_replay"] = launches_replay[name]
         r["launches"] += launches_replay[name]
@@ -3227,7 +3520,28 @@ def main() -> int:
             f32=f32_out["graphs"], parity_replay=preplay,
             sharded=shard_graphs)))
 
-    # 18. result lines
+    # 18. the bench entry point for every model; each reduced kernel on
+    # the quadruped's and the humanoid's chunks
+    launches_entry, entry_cases, entry_report = entry_phase(
+        engine, specs, log_stacked, replay_sols)
+    for r in records:
+        nm = r["name"]
+        r["launches_entry"] = {m: v[nm] for m, v in launches_entry.items()}
+        r["launches"] += sum(r["launches_entry"].values())
+        r["launches_per_entry_graph"] = {
+            m: {kind: {w: c[w]["launches"][nm] for w in c}
+                for kind, c in rep["captures"].items()}
+            for m, rep in entry_report.items()}
+        for model, sfx in ENTRY_SUFFIX.items():
+            for case, c in entry_cases[model].get(nm, {}).items():
+                pre = "" if case == "first" else f"_{case}"
+                r.update({f"{key}{pre}_{sfx}": c[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "active", "k",
+                    "max_abs_err")})
+    log("[entry] the bench entry point per model (phase 18): "
+        + json.dumps(entry_report))
+
+    # 19. result lines
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -39,14 +39,26 @@ and 7, and prints the numbers those phases are held to:
    engine `solve_batched_fast` at `chip_smoke.FAST_OPTS` and
    `chip_smoke.FAST_ALPHA_OPTS`; and the parity engine on f32 data at
    `chip_smoke.F32_OPTS` (``bench.py --engine f32``).
+7. the bench entry point's bars (`fcc_qp_tpu_torch.bench`, `chip_smoke.py`
+   phase 18), per model at the bench flags with the model's polish Newton
+   steps, on the bench's walking log (`generate_osc_sequence(model,
+   65536, seed=0, smoothness=0.002)`): the cold solve of its first 512
+   steps (the first 512 instances of the bench's cold batch) and the
+   replay of its steps 0-1023 as 64 streams x 16 steps (the first 64
+   streams of the bench's 4096-stream replay): kSuccess shares, the warm
+   polish acceptance and the warm n_iter p50, with the port's plain
+   versions compared status by status and n_iter by n_iter.
 
     python3 exp_full_reference.py [--skip-port] [section ...]
 
 runs the named sections (``full``, ``dropin``, ``humanoid``,
 ``humanoid614``, ``humanoid1024``, ``humanoid_reduced``,
 ``humanoid_reduced1024`` (the same on all 1024), ``alpha``,
-``adaptive``, ``fast``, ``f32``, ``f32_8192`` (the same on all 8192)),
-all of them by default.
+``adaptive``, ``fast``, ``f32``, ``f32_8192`` (the same on all 8192),
+``bench_cassie``, ``bench_quadruped``, ``bench_humanoid``,
+``bench_cassie8192``, ``bench_quadruped8192``, ``bench_humanoid8192``
+(the JAX package's cold solve of the model's whole cold batch)), all of
+them by default.
 
 Takes minutes per section (the JAX programs compile first). Needs the JAX
 package's test environment: XLA on the CPU with x64 and the SSE4.2 pin
@@ -71,7 +83,7 @@ import numpy as np  # noqa: E402
 import chip_smoke  # noqa: E402
 import fcc_qp_tpu as J  # noqa: E402
 from fcc_qp_tpu.core.ds_engine import solve_batched_ds, to_ds_batch  # noqa: E402
-from fcc_qp_tpu.models.osc import (CASSIE, HUMANOID,  # noqa: E402
+from fcc_qp_tpu.models.osc import (CASSIE, HUMANOID, MODELS,  # noqa: E402
                                    generate_osc_batch, generate_osc_sequence)
 from fcc_qp_tpu.utils.io import stack_qp_dicts  # noqa: E402
 
@@ -232,6 +244,104 @@ def fast_options(port: bool, tag, opts, first=512, dtype=None):
     _compare(tag, jsol, tsol, first)
 
 
+# the bench's walking log (bench.py defaults: 4096 streams x 16 steps) and
+# the subsets its bars are taken on
+BENCH_T, BENCH_COLD, BENCH_STREAMS, BENCH_STEPS = 65536, 512, 64, 16
+
+
+def _warm_stats(sols, streams, steps):
+    """kSuccess share, warm polish acceptance and warm n_iter p50 of a
+    replay's solutions (global time order)."""
+    st = np.asarray(sols.details.solve_status)
+    n = np.asarray(sols.details.n_iter).reshape(streams, steps)
+    acc = np.asarray(sols.details.polish_accepted).reshape(streams, steps)
+    return st, n, acc, ((st == 0).mean(), acc[:, 1:].mean(),
+                        np.median(n[:, 1:]))
+
+
+def bench_cold_reference(model):
+    """Section 7, the whole cold batch: the JAX package's cold solve of the
+    bench walking log's first 8192 steps at the bench flags."""
+    qps = generate_osc_sequence(model, BENCH_T, seed=0, smoothness=0.002)
+    st = stack_qp_dicts(qps[:chip_smoke.B])
+    del qps
+    t0 = time.perf_counter()
+    jsol, _ = solve_batched_ds(
+        to_ds_batch(st), model.shape,
+        J.FCCQPOptions(**chip_smoke.BENCH_OPTS,
+                       polish_newton_steps=model.polish_newton_steps),
+        timing=False)
+    print(f"[bench:{model.name}] JAX cold solve of {chip_smoke.B} "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _compare(f"[bench:{model.name}] cold, all {chip_smoke.B}:", jsol, None,
+             chip_smoke.B)
+
+
+def bench_reference(port: bool, model):
+    """Section 7: the JAX package (and the port's plain versions) at the
+    bench flags on the subsets of the bench's walking log that
+    `chip_smoke.py` phase 18 holds the card to."""
+    from fcc_qp_tpu.core.ds_engine import replay_ds_streams
+
+    tag = f"[bench:{model.name}]"
+    t0 = time.perf_counter()
+    # the actuator bounds are a quantile over the whole log, so the subset
+    # is cut from the bench's full-length log; only the subset is stacked
+    qps = generate_osc_sequence(model, BENCH_T, seed=0, smoothness=0.002)
+    n_rep = BENCH_STREAMS * BENCH_STEPS
+    st = stack_qp_dicts(qps[:max(n_rep, BENCH_COLD)])
+    del qps
+    print(f"{tag} walking log T={BENCH_T} generated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    opts = dict(chip_smoke.BENCH_OPTS,
+                polish_newton_steps=model.polish_newton_steps)
+    cold = {k: v[:BENCH_COLD] for k, v in st.items()}
+    rep = {k: v[:n_rep] for k, v in st.items()}
+    t0 = time.perf_counter()
+    jsol, _ = solve_batched_ds(to_ds_batch(cold), model.shape,
+                               J.FCCQPOptions(**opts), timing=False)
+    print(f"{tag} JAX cold solve {time.perf_counter() - t0:.1f} s; polish "
+          f"accepted {np.asarray(jsol.details.polish_accepted).mean():.6f}",
+          flush=True)
+    t0 = time.perf_counter()
+    jrep, _ = replay_ds_streams(to_ds_batch(rep), model.shape,
+                                J.FCCQPOptions(**opts),
+                                n_streams=BENCH_STREAMS)
+    js, jn, jacc, (jok, jwacc, jp50) = _warm_stats(jrep, BENCH_STREAMS,
+                                                   BENCH_STEPS)
+    print(f"{tag} JAX replay {BENCH_STREAMS} x {BENCH_STEPS} "
+          f"({time.perf_counter() - t0:.1f} s): kSuccess {(js == 0).sum()}/"
+          f"{n_rep} = {jok:.6f}; warm polish acceptance {jwacc:.6f}; warm "
+          f"n_iter p50 {jp50:.0f}; not kSuccess at "
+          f"{np.where(js != 0)[0].tolist()[:16]}", flush=True)
+    tsol = trep = None
+    if port:
+        import torch
+
+        import fcc_qp_tpu_torch as T
+
+        torch.set_num_threads(2)
+        tsol, _ = T.solve_batched_ds(T.to_ds_batch(cold, device="cpu"),
+                                     _tshape(model), T.FCCQPOptions(**opts),
+                                     device="cpu")
+        trep, _ = T.replay_ds_streams(T.to_ds_batch(rep, device="cpu"),
+                                      _tshape(model), T.FCCQPOptions(**opts),
+                                      n_streams=BENCH_STREAMS, device="cpu")
+    _compare(f"{tag} cold, first {BENCH_COLD}:", jsol, tsol, BENCH_COLD)
+    if trep is None:
+        return
+    ts, tn, tacc, (tok, twacc, tp50) = _warm_stats(trep, BENCH_STREAMS,
+                                                   BENCH_STEPS)
+    dz = float(np.abs(np.asarray(jrep.z) - trep.z.numpy()).max())
+    print(f"{tag} port replay (plain versions on the CPU): kSuccess "
+          f"{(ts == 0).sum()}/{n_rep} = {tok:.6f}; warm polish acceptance "
+          f"{twacc:.6f}; warm n_iter p50 {tp50:.0f}; statuses differ on "
+          f"{np.where(ts != js)[0].tolist()[:16]}; n_iter differs on "
+          f"{(tn != jn).sum()} steps {np.where(tn.ravel() != jn.ravel())[0].tolist()[:16]}"
+          f"; acceptance differs on {(tacc != jacc).sum()}; max |dz| "
+          f"{dz:.3e}", flush=True)
+
+
 SECTIONS = {
     "full": lambda port: full_batch(port),
     "dropin": lambda port: dropin(port),
@@ -279,6 +389,12 @@ SECTIONS = {
     "f32_8192": lambda port: fast_options(port, "[f32:8192]",
                                           chip_smoke.F32_OPTS,
                                           first=chip_smoke.B, dtype="f32"),
+    "bench_cassie": lambda port: bench_reference(port, CASSIE),
+    "bench_quadruped": lambda port: bench_reference(port, MODELS["quadruped"]),
+    "bench_humanoid": lambda port: bench_reference(port, HUMANOID),
+    # the JAX package alone on each model's whole cold batch
+    **{f"bench_{name}8192": (lambda port, m=m: bench_cold_reference(m))
+       for name, m in MODELS.items()},
 }
 
 

@@ -41,6 +41,7 @@ opts = T.FCCQPOptions(max_iter=3000, rho=0.05, eps_fcone=1e-6,
 sol, _ = T.solve_batched_ds(qp, CASSIE.shape, opts, device="cpu")
 assert sol.z.shape == (4, 60)
 import fcc_qp_tpu_torch.core.batched, fcc_qp_tpu_torch.core.serving
+import fcc_qp_tpu_torch.bench
 import fcc_qp_tpu_torch.parallel, fcc_qp_tpu_torch.parallel.scaling_bench
 import fcc_qp_tpu_torch.utils.io
 bad = sorted(m for m in sys.modules
@@ -86,6 +87,22 @@ def test_no_module_imports_jax_or_the_jax_package():
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "fcc_qp_tpu"), (
                     f"{os.path.relpath(path, ROOT)} imports {name}")
+
+
+def test_bench_entry_point_is_scanned_and_has_no_fallback():
+    """The bench entry point is among the sources the import rule scans;
+    no handler anywhere in it (nothing catches a kernel's failure to
+    build or to launch, nothing retries on the CPU), and the card is its
+    default device."""
+    import ast
+
+    from fcc_qp_tpu_torch import bench
+
+    path = os.path.join(ROOT, "fcc_qp_tpu_torch", "bench.py")
+    assert path in set(_port_sources())
+    tree = ast.parse(open(path).read())
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    assert bench.parse_args([]).device == "cuda"
 
 
 def test_tf32_pinned_off():
