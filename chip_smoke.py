@@ -88,7 +88,9 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    cuSOLVER bit for bit and the eager solve by statuses and n_iter with
    |dz| <= 1e-9; the exhausted flag clear; a captured call under
    `torch.profiler` has no host read and the path's full-layout kernel
-   in its trace.
+   in its trace (a trace can lose kernel records: a call whose trace
+   holds none is profiled again, up to `PROFILED_CALLS` calls, all of
+   them without a host read).
 7. The drop-in `FCCQP(60, 38, 12, 38)` over a 200-step walking log, the
    reference loop (``set_warm_start(i > 0)``), on the f64 engine at the
    README quick-start options and on the ds engine with rho = 0.05; on
@@ -214,7 +216,29 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    with an iterating instance (the stragglers) and a warm step's last
    chunk, timed with bounds (``*_quad``, ``*_hum``, ``*_tail_quad``,
    ``*_warm_hum``, ... keys).
-19. One JSON line with a record per kernel (the first chunk's numbers
+19. The public surface and the walking-log example (`surface_phase`),
+   each path counted from zero after every batched capture is dropped
+   (so each captures anew and its wrappers count under the capture):
+   `examples/replay_walking_torch.py`'s `replay` in its loop mode over
+   400 synthesized steps (the drop-in f64 engine; kSuccess within two of
+   the JAX package's, `EXAMPLE_JAX`) and its batched mode at 400 and at
+   8192 steps (kSuccess at least the JAX share less 1%), kSuccess
+   residuals <= 1e-6 and equality residuals <= 1e-8 (1 + max |b_eq|),
+   the mode's kernels launched, the plot written (a temporary
+   directory), the wall per `Solve` p50 / p95 and the batched solves/s;
+   four ``timing=False`` calls of `solve_batched_ds` (phase 2's batch
+   and flags) and of `solve_batched_fast` (`SHARD_OPTS`) queued before
+   one synchronize, each bit for bit the ``timing=True`` result with
+   zero time fields, their wall per call beside the synchronized call's;
+   `solve(rho=, operator=)` and `solve_batched_fast(rho=, operator=)`
+   (a scalar rho and one per instance) bit for bit the calls that build
+   the operator; the reduced f64 kernel on the example's chunks, the
+   reduced f32 kernel on the queued bench solve's and the full-layout
+   kernel on the ``operator=`` solves' chunks against their plain
+   versions bit for bit, timed with bounds (``*_example``,
+   ``*_untimed``, ``*_solve_operator``, ``*_fast_operator`` keys).
+   `python3 exp_surface_phase.py` runs it alone.
+20. One JSON line with a record per kernel (the first chunk's numbers
    under the plain keys, the straggler chunk's under ``*_tail``, the
    humanoid's under ``*_k47`` / ``*_k76`` / ``*_n76``, the warm step's
    under ``*_warm``, the drop-in chunk's under ``*_b1``, alpha = 1.6's
@@ -233,8 +257,9 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    of the graph pair of phases 6, 13, 14, 15 and 17, each counted under
    capture: an IF body's kernels count whether or not it runs;
    ``launches_entry`` per model of phase 18 and
-   ``launches_per_entry_graph`` in one replay of each of its graphs), the
-   `nvidia-smi` line, and the final JSON status line.
+   ``launches_per_entry_graph`` in one replay of each of its graphs,
+   ``launches_surface`` per path of phase 19), the `nvidia-smi` line,
+   and the final JSON status line.
 
 Also printed: the bench solve's host seconds per chunk (the approach and
 endgame stage seconds over their launches), beside the kernels' own
@@ -1780,7 +1805,7 @@ def fast_phase(stacked):
     import torch
 
     from fcc_qp_tpu_torch import FCCQPOptions, solve_batched_fast
-    from fcc_qp_tpu_torch.core.batched import fast_stages
+    from fcc_qp_tpu_torch.core.batched import Given, fast_stages
     from fcc_qp_tpu_torch.models.osc import CASSIE
     from fcc_qp_tpu_torch.ops.kkt import admm_operator
     from fcc_qp_tpu_torch.utils.io import to_qpbatch
@@ -1791,7 +1816,8 @@ def fast_phase(stacked):
         opts = FCCQPOptions(**o)
         rho = torch.full((B,), opts.rho, dtype=torch.float64, device="cuda")
         sol, launches[tag], rep = captured_path(
-            f"fast:{tag}", fast_stages(CASSIE.shape, opts), qpb,
+            f"fast:{tag}", fast_stages(CASSIE.shape, opts),
+            Given(qpb, rho, None),
             lambda g: solve_batched_fast(qpb, CASSIE.shape, opts, graphs=g),
             "admm_chunk_full_warp<double",
             rebuild=lambda: admm_operator(qpb.Q, qpb.b, qpb.A_eq, qpb.b_eq,
@@ -2090,23 +2116,38 @@ def body_graph_ms(fn, reps=5):
                 if_nodes=nodes and nodes.get("conditional", 0))
 
 
+# profiled calls of one path at most: a trace can lose kernel records
+# (the same captured solve profiled 25 times in a row traced 5, 5, ...,
+# 3, 2 of its kernels; late in a long run one trace held none of its 6),
+# so a call whose trace holds no kernel of the path is profiled again
+PROFILED_CALLS = 3
+
+
 def profiled_host_reads(run, inst):
-    """``run()`` once under `torch.profiler`: its host reads
+    """``run()`` under `torch.profiler`: its host reads
     (``aten::_local_scalar_dense``) and the kernels in its trace whose
-    name holds ``inst``."""
+    name holds ``inst``. Until a trace holds such a kernel, up to
+    `PROFILED_CALLS` calls are profiled, each in a profiler session of
+    its own; ``host_reads`` sums every profiled call's, ``traced_kernels``
+    is the last trace's count, ``profiled_calls`` how many ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    ev = prof.events()
-    return dict(host_reads=sum(e.name == "aten::_local_scalar_dense"
-                               for e in ev if e.device_type != cuda),
-                traced_kernels=sum(inst in e.name for e in ev
-                                   if e.device_type == cuda))
+    reads = 0
+    for calls in range(1, PROFILED_CALLS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ev = prof.events()
+        reads += sum(e.name == "aten::_local_scalar_dense"
+                     for e in ev if e.device_type != cuda)
+        traced = sum(inst in e.name for e in ev if e.device_type == cuda)
+        if traced:
+            break
+    return dict(host_reads=reads, traced_kernels=traced,
+                profiled_calls=calls)
 
 
 def captured_path(tag, stages, qp, solve, inst, rebuild=None):
@@ -3064,6 +3105,385 @@ def entry_phase(engine, specs, cassie_log, cassie_replay):
     return launches, cases, report
 
 
+# the public surface and the walking-log example (phase 19). The example
+# (examples/replay_walking_torch.py) at its defaults: the drop-in loop
+# over 400 synthesized steps and the batched solve of 400 and of 8192 (the
+# bench's cold size), each on its own synthesized log; the JAX package's
+# kSuccess counts on the same logs at the JAX example's options, on the
+# CPU (exp_full_reference.py example_loop, example_batched,
+# example_batched8192), as (count, of): the loop's within two, the
+# batched shares less 1%
+EXAMPLE_RUNS = (("loop", 400), ("batched", 400), ("batched", 8192))
+EXAMPLE_JAX = {"loop400": (400, 400), "batched400": (400, 400),
+               "batched8192": (8192, 8192)}
+# timing=False calls queued back to back before one synchronize
+QUEUE_DEPTH = 4
+# the rho the rho=/operator= calls give (opts.rho elsewhere), and the
+# instance `solve` takes (it converges there at FAST_OPTS' tolerances,
+# as in tests/test_torch_public_surface.py)
+SURFACE_RHO = 0.7
+SURFACE_INSTANCE = 5
+
+
+def example_module():
+    """`examples/replay_walking_torch.py`, imported from its path."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", "replay_walking_torch.py")
+    spec = importlib.util.spec_from_file_location("replay_walking_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def drop_captures():
+    """Drop every batched capture (each once its queued replays are
+    done), so that each path after it captures anew and its wrappers
+    count under the capture."""
+    from fcc_qp_tpu_torch.core import graphs
+
+    for cap in graphs._CAPTURES.values():
+        cap.wait()
+    graphs._CAPTURES.clear()
+
+
+def example_phase(ex, out_dir):
+    """Phase 19 (a): the example's `replay` on the card for each of
+    `EXAMPLE_RUNS`, counted from zero; its plot written into
+    ``out_dir``. Checks: a finite (T, 60) solution; no
+    kFactorizationFailed; kSuccess within two of the JAX package's
+    (loop) or its share less 1% (batched); on kSuccess the ADMM
+    residuals <= 1e-6 and the equality residual <= 1e-8 (1 + max |b_eq|);
+    the kernels of the mode launched; a PNG. Returns (launches per run,
+    numbers per run, the stacked log of each run)."""
+    import numpy as np
+
+    from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
+
+    launches, report, logs = {}, {}, {}
+    for mode, steps in EXAMPLE_RUNS:
+        tag = f"{mode}{steps}"
+        png = os.path.join(out_dir, f"{tag}.png")
+        argv = ["--mode", mode, "--steps", str(steps), "--out", png]
+        reset_counts()
+        t0 = time.perf_counter()
+        r = ex.replay(argv)
+        wall = time.perf_counter() - t0
+        launches[tag] = counts()
+        logs[tag] = stack_qp_dicts(ex.load_log(ex.parse_args(argv)))
+        b_eq = np.abs(logs[tag]["b_eq"]).max(axis=1)
+        st = r["status"]
+        ok = st == 0
+        count, of = EXAMPLE_JAX[tag]
+        check(r["z"].shape == (of, 60) and np.isfinite(r["z"]).all(),
+              f"example:{tag}: solution not finite or of the wrong shape")
+        check((st != 2).all(), f"example:{tag}: kFactorizationFailed")
+        if mode == "loop":
+            check(abs(int(ok.sum()) - count) <= 2, f"example:{tag}: "
+                  f"kSuccess {int(ok.sum())}, the JAX package's {count}")
+        else:
+            check(ok.mean() >= count / of - 0.01, f"example:{tag}: kSuccess "
+                  f"{ok.mean():.4%} < the JAX package's {count / of:.4%} "
+                  "less 1%")
+        check((r["residual"][ok] <= 1e-6).all(),
+              f"example:{tag}: kSuccess residual above 1e-6")
+        check((r["eq_viol"][ok] <= 1e-8 * (1.0 + b_eq[ok])).all(),
+              f"example:{tag}: relative equality residual above 1e-8 on "
+              "kSuccess")
+        # the batched mode runs no approach phase (phase1_tol 0, polish
+        # off): the f64 endgame kernel from the first iteration
+        kernels = (("admm_chunk_full_f64",) if mode == "loop"
+                   else ("admm_chunk_f64",))
+        for name in kernels:
+            check(launches[tag][name] > 0,
+                  f"example:{tag}: {name} was not launched")
+        ex.make_plots(r["z"], r["times"], r["iters"], r["fviol"],
+                      r["bviol"], png)
+        with open(png, "rb") as f:
+            check(f.read(8) == b"\x89PNG\r\n\x1a\n",
+                  f"example:{tag}: no PNG written")
+        rep = dict(kSuccess=int(ok.sum()), of=of, wall_s=wall,
+                   n_iter_p50=float(np.median(r["iters"])),
+                   n_iter_max=int(r["iters"].max()),
+                   max_residual=float(r["residual"][ok].max()),
+                   max_eq_viol=float(r["eq_viol"][ok].max()))
+        if mode == "loop":
+            warm = r["walls"][1:] * 1e3
+            rep.update(wall_p50_ms=float(np.median(warm)),
+                       wall_p95_ms=float(np.percentile(warm, 95)),
+                       first_solve_ms=float(r["walls"][0] * 1e3),
+                       solve_time_p50_ms=float(np.median(r["times"][1:])
+                                               * 1e3))
+        else:
+            rep.update(timed_wall_s=float(r["walls"][0]),
+                       solves_per_s=steps / float(r["walls"][0]))
+        report[tag] = rep
+        log(f"[example:{tag}] " + json.dumps(rep) + "; launches "
+            + json.dumps(launches[tag]) + f"; plot {os.path.basename(png)}")
+    return launches, report, logs
+
+
+def synchronizes(fn) -> bool:
+    """Whether ``fn()`` synchronizes with the card (a read of a device
+    tensor, a stream or device synchronize), by torch's sync debug mode
+    set to raise; the mode is reset after."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return False
+
+
+def queued_untimed(tag, call):
+    """Phase 19 (b): ``call(timing)`` once with ``timing=True`` (it
+    captures), `QUEUE_DEPTH` synchronized ``timing=True`` calls, then
+    `QUEUE_DEPTH` ``timing=False`` calls queued back to back before one
+    synchronize, under torch's sync debug mode set to raise: no queued
+    call synchronizes with the card (a read of a device tensor, a
+    synchronize), which the mode is first shown to catch; every queued
+    result equals the ``timing=True`` call's bit for bit (z, every
+    diagnostic but the times, the warm state), its time fields zero.
+    Returns the walls per call, the host's seconds to issue each queued
+    call (the first from an idle card), how many had work still queued
+    on the card when the last returned (events recorded behind each),
+    and the device span of the last synchronized call (its
+    ``solve_time``)."""
+    import statistics
+
+    import torch
+
+    from fcc_qp_tpu_torch.parallel.mesh import leaves
+
+    want, want_ws = call(True)
+    walls = []
+    for _ in range(QUEUE_DEPTH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, _ = call(True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(synchronizes(lambda: torch.ones(1, device="cuda").cpu()),
+          f"{tag}: torch's sync debug mode does not catch a device read")
+    torch.cuda.synchronize()
+    outs, issue, done = [], [], []
+
+    def queue():
+        for _ in range(QUEUE_DEPTH):
+            t1 = time.perf_counter()
+            outs.append(call(False))
+            issue.append(time.perf_counter() - t1)
+            done.append(torch.cuda.Event())
+            done[-1].record()
+
+    t0 = time.perf_counter()
+    check(not synchronizes(queue), f"{tag}: a timing=False call "
+          "synchronized with the card")
+    issued = time.perf_counter() - t0
+    pending = [not e.query() for e in done]
+    torch.cuda.synchronize()
+    queued = time.perf_counter() - t0
+    for i, (sol, ws) in enumerate(outs):
+        check_same_solution(f"{tag}: queued call {i}", sol, want)
+        for f in TIME_FIELDS:
+            check(not getattr(sol.details, f).any(),
+                  f"{tag}: queued call {i} has a nonzero {f}")
+        check(all(torch.equal(a, b) for a, b in zip(leaves(ws),
+                                                     leaves(want_ws))),
+              f"{tag}: queued call {i}'s warm state differs")
+    rep = dict(sync_wall_per_call_s=statistics.median(walls),
+               sync_walls_s=walls,
+               queued_wall_per_call_s=queued / QUEUE_DEPTH,
+               queued_issue_s=issued, issue_s=issue,
+               still_queued=sum(pending),
+               device_solve_time_s=float(last.details.solve_time[0]))
+    log(f"[untimed:{tag}] {QUEUE_DEPTH} timing=False calls queued: "
+        f"{rep['queued_wall_per_call_s']:.6f} s a call ({issued:.6f} s to "
+        f"issue all; each call {', '.join(f'{t:.6f}' for t in issue)} s, "
+        f"the first from an idle card; {sum(pending)} still queued on the "
+        f"card when the last returned), against "
+        f"{rep['sync_wall_per_call_s']:.6f} s a synchronized timing=True "
+        "call (median); each bit for bit the timing=True result, time "
+        "fields zero")
+    return rep
+
+
+def surface_phase(ex, qp, bench, stacked, solver_mod, out_dir):
+    """Phase 19: the public surface and the example. (a) `example_phase`;
+    (b) `queued_untimed` for `solve_batched_ds` at the bench flags on
+    phase 2's batch and for `solve_batched_fast` at `SHARD_OPTS` on the
+    same instances; (c) ``rho=`` / ``operator=``: `solve` on one instance
+    at `SURFACE_RHO` and `FAST_OPTS`' tolerances with the operator
+    `ops.kkt.admm_operator` builds for it, and `solve_batched_fast` at
+    `FAST_OPTS` (adaptive rho) with a
+    scalar rho and with one rho per instance, each with its operator
+    (built as the capture builds it: static, under cuSOLVER), each bit
+    for bit the call that builds the operator itself (at
+    ``opts.replace(rho=...)``, or with the same rho vector); (d) the
+    kernels against their plain versions on this phase's paths, from
+    recorded uncaptured solves: the reduced f64 kernel on the first and
+    the last iterating chunk of the example's batched solve of 8192 steps
+    (its largest; the example's options run no f32 approach phase), the
+    reduced f32 kernel on those of the queued bench-flag solve,
+    the full-layout kernel on the ``operator=`` solve's one launch and on
+    the first chunk of the ``operator=`` fast solve. Every path counted
+    from zero. Returns (launches {path: counts}, kernel cases {kernel:
+    {case: compare record}}, report)."""
+    import torch
+
+    import fcc_qp_tpu_torch.core.ds_engine as engine
+    from fcc_qp_tpu_torch import (FCCQPOptions, QPBatch, solve,
+                                  solve_batched_ds, solve_batched_fast,
+                                  to_ds_batch)
+    from fcc_qp_tpu_torch.core import graphs
+    from fcc_qp_tpu_torch.core.graphs import _cusolver
+    from fcc_qp_tpu_torch.models.osc import CASSIE
+    from fcc_qp_tpu_torch.ops import pallas_admm
+    from fcc_qp_tpu_torch.ops.kkt import admm_operator
+    from fcc_qp_tpu_torch.utils.io import to_qpbatch
+
+    shape = CASSIE.shape
+    drop_captures()
+    launches, report, logs = example_phase(ex, out_dir)
+
+    qpb = to_qpbatch(stacked)
+    untimed = {}
+    reset_counts()
+    untimed["ds"] = queued_untimed("solve_batched_ds", lambda t:
+                                   solve_batched_ds(qp, shape, bench,
+                                                    timing=t))
+    launches["untimed_ds"] = counts()
+    # the host's seconds to launch the bench capture's two graphs alone,
+    # from an idle card: what a queued call cannot hide
+    cap = next(reversed(graphs._CAPTURES.values()))
+    launch = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cap.run(False)
+        launch.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    untimed["ds"]["graph_launch_s"] = launch
+    log("[untimed:solve_batched_ds] the capture's two graphs launched "
+        "alone from an idle card: " + ", ".join(f"{t:.6f}" for t in launch)
+        + " s of host time")
+    reset_counts()
+    shard = FCCQPOptions(**SHARD_OPTS)
+    untimed["fast"] = queued_untimed("solve_batched_fast", lambda t:
+                                     solve_batched_fast(qpb, shape, shard,
+                                                        timing=t))
+    launches["untimed_fast"] = counts()
+    report["untimed"] = untimed
+    for path, names in (("untimed_ds", REDUCED_KERNELS),
+                        ("untimed_fast", ("admm_chunk_full_f64",))):
+        for name in names:
+            check(launches[path][name] > 0,
+                  f"{path}: {name} was not launched")
+
+    # (c) a prebuilt operator: `solve` (the parity engine, which takes no
+    # adaptive rho) on one instance, `solve_batched_fast` on the batch
+    fast = FCCQPOptions(**FAST_OPTS)
+    one = QPBatch(*(a[SURFACE_INSTANCE] for a in qpb.__dict__.values()))
+    reset_counts()
+    op1 = admm_operator(one.Q[None], one.b[None], one.A_eq[None],
+                        one.b_eq[None], SURFACE_RHO)
+    rho0 = torch.tensor(SURFACE_RHO, dtype=torch.float64, device="cuda")
+    parity = fast.replace(adaptive_rho=False)
+    (given1, _), rec_solve = recorded_full(solver_mod, lambda: solve(
+        one, shape, parity, rho=rho0, operator=op1))
+    own1, _ = solve(one, shape, parity.replace(rho=SURFACE_RHO))
+    check_same_solution("solve(rho=, operator=)", given1, own1)
+    rho_s = torch.full((B,), SURFACE_RHO, dtype=torch.float64,
+                       device="cuda")
+    rho_v = torch.linspace(0.25, 4.0, B, dtype=torch.float64, device="cuda")
+    with _cusolver():
+        op_s, op_v = (admm_operator(qpb.Q, qpb.b, qpb.A_eq, qpb.b_eq, r,
+                                    static=True) for r in (rho_s, rho_v))
+    given_s, _ = solve_batched_fast(qpb, shape, fast, rho=SURFACE_RHO,
+                                    operator=op_s)
+    own_s, _ = solve_batched_fast(qpb, shape,
+                                  fast.replace(rho=SURFACE_RHO))
+    check_same_solution("solve_batched_fast(rho=<scalar>, operator=)",
+                        given_s, own_s)
+    given_v, _ = solve_batched_fast(qpb, shape, fast, rho=rho_v,
+                                    operator=op_v)
+    own_v, _ = solve_batched_fast(qpb, shape, fast, rho=rho_v)
+    check_same_solution("solve_batched_fast(rho=<per instance>, "
+                        "operator=)", given_v, own_v)
+    launches["operator"] = counts()
+    check(launches["operator"]["admm_chunk_full_f64"] > 0,
+          "operator=: admm_chunk_full_f64 was not launched")
+    for tag, sol in (("solve", given1), ("fast_scalar", given_s),
+                     ("fast_vector", given_v)):
+        st = sol.details.solve_status.reshape(-1)
+        check((st != 2).all() and torch.isfinite(sol.z).all(),
+              f"operator={tag}: kFactorizationFailed or a NaN")
+    report["operator"] = {
+        tag: dict(kSuccess=int((s.details.solve_status == 0).sum()),
+                  of=int(s.details.solve_status.numel()))
+        for tag, s in (("solve", given1), ("fast_scalar", given_s),
+                       ("fast_vector", given_v))}
+    log("[operator] solve(rho=, operator=) and solve_batched_fast(rho=, "
+        "operator=) (a scalar rho and one per instance) each bit for bit "
+        "the call that builds its operator: " + json.dumps(
+            report["operator"]) + "; launches " + json.dumps(
+                launches["operator"]))
+
+    # (d) the kernels on this phase's chunks (uncaptured, not counted), on
+    # the example's largest batched run
+    steps = max(n for mode, n in EXAMPLE_RUNS if mode == "batched")
+    args = ex.parse_args(["--steps", str(steps)])
+    batch = to_ds_batch(logs[f"batched{steps}"])
+    ex_opts = FCCQPOptions(max_iter=args.max_iter, rho=args.rho,
+                           eps_fcone=args.eps, eps_bound=args.eps,
+                           scaling=True, splitting="constrained",
+                           presolve="operator")
+    _, rec_ex = recorded_solve(engine, lambda: solve_batched_ds(
+        batch, shape, ex_opts, graphs=False))
+    del batch
+    _, rec_bench = recorded_solve(engine, lambda: solve_batched_ds(
+        qp, shape, bench, graphs=False))
+    _, rec_fast = recorded_full(solver_mod, lambda: solve_batched_fast(
+        qpb, shape, fast, rho=rho_v, operator=op_v, graphs=False))
+    cases = {}
+    for name, kernel, plain, prec, rec, path in (
+            ("admm_chunk_f64", pallas_admm.admm_chunk_f64,
+             pallas_admm.admm_chunk_f64_plain, "f64", rec_ex, "example"),
+            ("admm_chunk_f32", pallas_admm.admm_chunk_f32,
+             pallas_admm.admm_chunk_f32_plain, "f32", rec_bench,
+             "untimed")):
+        c = {}
+        for case, which in ((path, "first"), (f"tail_{path}",
+                                              "last_active")):
+            got = getattr(rec[name], which)
+            check(got is not None, f"{name}: no {which} chunk in the "
+                  f"{path} path's solve")
+            c[case] = compare(name, case, kernel, plain, *got, prec,
+                              exact=True)
+        check(c[f"tail_{path}"]["active"] > 0, f"{name}: no instance "
+              f"iterates in the {path} path's last chunk")
+        cases[name] = c
+    full_k = pallas_admm.admm_chunk_full_f64
+    full_p = pallas_admm.admm_chunk_full_f64_plain
+    cases["admm_chunk_full_f64"] = {
+        "solve_operator": compare_full("solve_operator", full_k, full_p,
+                                       *rec_solve.last),
+        "fast_operator": compare_full("fast_operator", full_k, full_p,
+                                      *rec_fast.first)}
+    check(cases["admm_chunk_full_f64"]["solve_operator"]["B"] == 1,
+          "the solve(operator=) launch is not one instance")
+    check(cases["admm_chunk_full_f64"]["fast_operator"]["active"] == B,
+          "the fast operator= solve's first chunk is not all active")
+    return launches, cases, report
+
+
 def main() -> int:
     import torch
 
@@ -3541,7 +3961,24 @@ def main() -> int:
     log("[entry] the bench entry point per model (phase 18): "
         + json.dumps(entry_report))
 
-    # 19. result lines
+    # 19. the public surface and the walking-log example
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        launches_surface, surface_cases, surface_report = surface_phase(
+            example_module(), qp, bench, stacked, solver_mod, out_dir)
+    for r in records:
+        nm = r["name"]
+        r["launches_surface"] = {p: v[nm] for p, v in launches_surface.items()}
+        r["launches"] += sum(r["launches_surface"].values())
+        for case, c in surface_cases.get(nm, {}).items():
+            r.update({f"{key}_{case}": c[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "active",
+                "max_abs_err")})
+    log("[surface] the public surface and the example (phase 19): "
+        + json.dumps(surface_report))
+
+    # 20. result lines
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

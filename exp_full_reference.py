@@ -48,6 +48,15 @@ and 7, and prints the numbers those phases are held to:
    streams of the bench's 4096-stream replay): kSuccess shares, the warm
    polish acceptance and the warm n_iter p50, with the port's plain
    versions compared status by status and n_iter by n_iter.
+8. the walking-log example (`examples/replay_walking_torch.py`,
+   `chip_smoke.py` phase 19) at its default options, on
+   `generate_osc_sequence(CASSIE, steps, seed=0)`: the drop-in loop over
+   400 steps (status counts and n_iter) and the batched solve of 400 and
+   of 8192 steps (kSuccess counts).
+9. the quadruped's cold instance 456 (the one whose status differed
+   between the packages on the bench log's first 512 steps): its
+   approach (f32) and endgame n_iter, polish attempts and acceptance and
+   status in both packages, in the batch of 512 and alone.
 
     python3 exp_full_reference.py [--skip-port] [section ...]
 
@@ -57,8 +66,9 @@ runs the named sections (``full``, ``dropin``, ``humanoid``,
 ``adaptive``, ``fast``, ``f32``, ``f32_8192`` (the same on all 8192),
 ``bench_cassie``, ``bench_quadruped``, ``bench_humanoid``,
 ``bench_cassie8192``, ``bench_quadruped8192``, ``bench_humanoid8192``
-(the JAX package's cold solve of the model's whole cold batch)), all of
-them by default.
+(the JAX package's cold solve of the model's whole cold batch),
+``example_loop``, ``example_batched``, ``example_batched8192``,
+``quad456``), all of them by default.
 
 Takes minutes per section (the JAX programs compile first). Needs the JAX
 package's test environment: XLA on the CPU with x64 and the SSE4.2 pin
@@ -342,6 +352,85 @@ def bench_reference(port: bool, model):
           f"{dz:.3e}", flush=True)
 
 
+# the walking-log example's options (examples/replay_walking.py:71-102 at
+# its defaults): the drop-in loop and the batched solve
+EXAMPLE_LOOP_OPTS = dict(rho=0.3, eps_fcone=1e-6, eps_bound=1e-6,
+                         max_iter=3000)
+EXAMPLE_BATCHED_OPTS = dict(max_iter=3000, rho=0.05, eps_fcone=1e-6,
+                            eps_bound=1e-6, scaling=True,
+                            splitting="constrained", presolve="operator")
+
+
+def example_loop(port: bool, steps=400):
+    """Section 8: the example's ``--mode loop`` (`dropin` at its
+    options)."""
+    dropin(port, CASSIE, steps, (("f64", EXAMPLE_LOOP_OPTS),))
+
+
+def example_batched(port: bool, steps):
+    """Section 8: the example's ``--mode batched``: one
+    `solve_batched_ds` of the whole synthesized log."""
+    st = stack_qp_dicts(generate_osc_sequence(CASSIE, steps, seed=0))
+    t0 = time.perf_counter()
+    jsol, _ = solve_batched_ds(to_ds_batch(st), CASSIE.shape,
+                               J.FCCQPOptions(**EXAMPLE_BATCHED_OPTS),
+                               timing=False)
+    print(f"[example:batched{steps}] JAX solve "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tsol = None
+    if port:
+        import torch
+
+        import fcc_qp_tpu_torch as T
+
+        torch.set_num_threads(2)
+        tsol, _ = T.solve_batched_ds(T.to_ds_batch(st, device="cpu"),
+                                     _tshape(CASSIE),
+                                     T.FCCQPOptions(**EXAMPLE_BATCHED_OPTS),
+                                     device="cpu")
+    _compare(f"[example:batched{steps}]", jsol, tsol, steps)
+
+
+QUAD_INSTANCE = 456
+TRACE_FIELDS = ("solve_status", "n_iter", "n_iter_f32", "n_iter_ds",
+                "polish_attempts", "polish_accepted",
+                "admm_residual_bounds", "admm_residual_friction_cone",
+                "equality_viol")
+
+
+def quad_instance(port: bool, i=QUAD_INSTANCE):
+    """Section 9: instance ``i`` of the quadruped's bench cold batch, its
+    telemetry in the batch of `BENCH_COLD` and alone, in both packages."""
+    model = MODELS["quadruped"]
+    qps = generate_osc_sequence(model, BENCH_T, seed=0, smoothness=0.002)
+    st = stack_qp_dicts(qps[:BENCH_COLD])
+    del qps
+    opts = dict(chip_smoke.BENCH_OPTS,
+                polish_newton_steps=model.polish_newton_steps)
+    alone = {k: v[i:i + 1] for k, v in st.items()}
+    for part, data in (("batch", st), ("alone", alone)):
+        j = i if part == "batch" else 0
+        jsol, _ = solve_batched_ds(to_ds_batch(data), model.shape,
+                                   J.FCCQPOptions(**opts), timing=False)
+        rows = [("JAX", {f: np.asarray(getattr(jsol.details, f))[j]
+                         for f in TRACE_FIELDS})]
+        if port:
+            import torch
+
+            import fcc_qp_tpu_torch as T
+
+            torch.set_num_threads(2)
+            tsol, _ = T.solve_batched_ds(T.to_ds_batch(data, device="cpu"),
+                                         _tshape(model),
+                                         T.FCCQPOptions(**opts),
+                                         device="cpu")
+            rows.append(("port", {f: getattr(tsol.details, f).numpy()[j]
+                                  for f in TRACE_FIELDS}))
+        for name, r in rows:
+            print(f"[quad{i}:{part}] {name}: " + ", ".join(
+                f"{f} {v}" for f, v in r.items()), flush=True)
+
+
 SECTIONS = {
     "full": lambda port: full_batch(port),
     "dropin": lambda port: dropin(port),
@@ -395,6 +484,10 @@ SECTIONS = {
     # the JAX package alone on each model's whole cold batch
     **{f"bench_{name}8192": (lambda port, m=m: bench_cold_reference(m))
        for name, m in MODELS.items()},
+    "example_loop": example_loop,
+    "example_batched": lambda port: example_batched(port, 400),
+    "example_batched8192": lambda port: example_batched(port, 8192),
+    "quad456": quad_instance,
 }
 
 

@@ -51,6 +51,12 @@ from fcc_qp_tpu_torch.types import FCCQPDetails, FCCQPSolution, QPBatch
 MAX_CAPTURES = 8
 
 
+def default_dtype() -> torch.dtype:
+    """The dtype `FCCQP` keeps when none is given: f64, the JAX package's
+    choice wherever it runs with x64."""
+    return torch.float64
+
+
 class FCCQP:
     """Stateful solver with the reference's exact method surface.
 
@@ -81,7 +87,7 @@ class FCCQP:
             num_vars=num_vars, num_eq=num_equality_constraints, nc=nc,
             lambda_c_start=lambda_c_start,
         )
-        self.dtype = dtype or torch.float64
+        self.dtype = dtype or default_dtype()
         if engine not in ("auto", "f64", "ds"):
             raise ValueError("engine must be 'auto', 'f64', or 'ds'")
         self.engine = "f64" if engine == "auto" else engine

@@ -37,7 +37,7 @@ the JAX engine.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -110,14 +110,41 @@ def _admm_batched(qp: QPBatch, x0, mu_x0, mu_lam0, rho, shape: ProblemShape,
             st["xrn"], st["lrn"], n_refactor)
 
 
-def _prepare_fast(qp: QPBatch, opts: FCCQPOptions, static: bool = False):
-    """The operator stage: rho at ``opts.rho`` for every instance (in the
-    data's dtype) and its operator. Returns ``(rho, operator)``."""
+class Given(NamedTuple):
+    """A batch with what the caller gives beside it: each instance's rho,
+    (B,), and optionally its prebuilt ADMM operator ``(F, x_const)``,
+    (B, n, n) / (B, n). The input buffers of `fast_stages`."""
+
+    qp: QPBatch
+    rho: torch.Tensor
+    operator: Optional[tuple] = None
+
+    @property
+    def b(self) -> torch.Tensor:
+        """The batch's ``b``, by which a capture reads the batch size."""
+        return self.qp.b
+
+
+def _rho_vector(qp: QPBatch, opts: FCCQPOptions, rho=None) -> torch.Tensor:
+    """Each instance's rho, (B,) in the data's dtype: ``rho`` (a float, a
+    0-d tensor or one per instance) or ``opts.rho``."""
     B = qp.b.shape[0]
-    rho = torch.full((B,), float(opts.rho), dtype=qp.Q.dtype,
-                     device=qp.b.device)
-    return rho, admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, rho,
-                              static=static)
+    if rho is None:
+        return torch.full((B,), float(opts.rho), dtype=qp.Q.dtype,
+                          device=qp.b.device)
+    rho = torch.as_tensor(rho, dtype=qp.Q.dtype).to(qp.b.device)
+    return rho.expand(B).contiguous()
+
+
+def _prepare_fast(qp: QPBatch, opts: FCCQPOptions, static: bool = False,
+                  rho=None, operator=None):
+    """The operator stage: each instance's rho (`_rho_vector`) and its
+    operator, ``operator`` where given. Returns ``(rho, operator)``."""
+    rho = _rho_vector(qp, opts, rho)
+    if operator is None:
+        operator = admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, rho,
+                                 static=static)
+    return rho, operator
 
 
 def _iterate_fast(qp: QPBatch, prep, shape: ProblemShape, opts: FCCQPOptions,
@@ -172,16 +199,33 @@ def _iterate_fast(qp: QPBatch, prep, shape: ProblemShape, opts: FCCQPOptions,
 
 
 def fast_stages(shape: ProblemShape, opts: FCCQPOptions,
-                dtype=torch.float64) -> Stages:
+                dtype=torch.float64, operator: bool = False) -> Stages:
     """`solve_batched_fast`'s static stage pair on ``dtype`` data (the
-    form `core.graphs.CapturedBatch` captures)."""
+    form `core.graphs.CapturedBatch` captures). Its input buffers are a
+    `Given`: the batch and each instance's rho, and with ``operator`` the
+    prebuilt operator, which the operator stage then copies instead of
+    building it."""
+    n = shape.num_vars
+
+    def inputs(B, dev):
+        kw = dict(dtype=dtype, device=dev)
+        op = ((torch.zeros((B, n, n), **kw), torch.zeros((B, n), **kw))
+              if operator else None)
+        return Given(zero_batch(shape, B, dev, dtype, batch_last=False),
+                     torch.zeros((B,), **kw), op)
+
+    def prepare(inp, warm, cache, warm_start):
+        # copies: an adaptive-rho rebuild (an IF node under a capture)
+        # writes rho and the operator in place
+        op = (None if inp.operator is None
+              else tuple(a.clone() for a in inp.operator))
+        return _prepare_fast(inp.qp, opts, static=True, rho=inp.rho.clone(),
+                             operator=op)
+
     return Stages(
-        ("fast", shape, opts, dtype),
-        lambda B, dev: zero_batch(shape, B, dev, dtype, batch_last=False),
-        lambda qp, warm, cache, warm_start: _prepare_fast(qp, opts,
-                                                          static=True),
-        lambda qp, prep, warm, cache, warm_start: _iterate_fast(
-            qp, prep, shape, opts, warm, warm_start, static=True))
+        ("fast", shape, opts, dtype, operator), inputs, prepare,
+        lambda inp, prep, warm, cache, warm_start: _iterate_fast(
+            inp.qp, prep, shape, opts, warm, warm_start, static=True))
 
 
 def solve_batched_fast(
@@ -190,6 +234,9 @@ def solve_batched_fast(
     opts: FCCQPOptions = FCCQPOptions(),
     warm: Optional[WarmStart] = None,
     warm_start: bool = False,
+    rho=None,
+    operator=None,
+    timing: bool = True,
     device=None,
     stage_times: Optional[dict] = None,
     graphs: Optional[bool] = None,
@@ -202,17 +249,24 @@ def solve_batched_fast(
     (``opts.adaptive_rho``).
 
     Runs on ``device`` (default CUDA; raises when there is no card) in
-    the data's dtype (f32 or f64); rho starts at ``opts.rho`` for every
-    instance and adapts per instance. On the card the solve runs
-    captured (`fast_stages`, `core.graphs.solve_captured`: the first call
-    of each configuration, batch size and ``warm_start`` captures it, and
-    every call replays it); ``graphs=False`` runs it uncaptured (the
+    the data's dtype (f32 or f64); rho starts at ``rho`` (a float, a 0-d
+    tensor or one per instance) or else ``opts.rho``, and adapts per
+    instance. ``operator``: a prebuilt ``(F, x_const)`` of the batch,
+    (B, n, n) / (B, n), for that starting rho (`ops.kkt.admm_operator`),
+    which the solve then does not build; it must match ``rho``. On the
+    card the solve runs captured (`fast_stages`, `core.graphs.
+    solve_captured`: the first call of each configuration, batch size,
+    ``warm_start`` and with or without an operator captures it, and
+    every call replays it, rho and the operator copied into input
+    buffers of the capture); ``graphs=False`` runs it uncaptured (the
     eager path, which reads the device between chunks).
     ``details.solve_time`` is the span of the whole solve and
     ``details.factorization_time`` the initial operator build's (CUDA
     events around the replays; uncaptured, wall spans each ending in a
-    device synchronize). ``stage_times``: a dict that receives the
-    synchronized seconds of the stages ``operator``, ``iterate`` and
+    device synchronize). ``timing=False`` leaves both zero and adds no
+    barrier, so captured calls queue back to back on the current stream
+    (`core.graphs.solve_captured`). ``stage_times``: a dict that receives
+    the synchronized seconds of the stages ``operator``, ``iterate`` and
     ``finalize`` and the count of operator rebuilds ``n_refactor``; such
     a call runs uncaptured.
 
@@ -225,20 +279,28 @@ def solve_batched_fast(
         warm = warm.to(dev, dt)
     if graphs and dev.type != "cuda":
         raise ValueError("CUDA graphs need a CUDA device")
+    if operator is not None:
+        operator = tuple(a.to(dev, dt) for a in operator)
     if dev.type == "cuda" and stage_times is None and graphs is not False:
         from fcc_qp_tpu_torch.core.graphs import solve_captured
 
-        return solve_captured(fast_stages(shape, opts, dt), qp, warm,
-                              warm_start, dev)
+        return solve_captured(
+            fast_stages(shape, opts, dt, operator is not None),
+            Given(qp, _rho_vector(qp, opts, rho), operator), warm,
+            warm_start, dev, timing)
     clock = StageClock(stage_times, dev)
-    sync(dev)
+    if timing:
+        sync(dev)
     t0 = time.perf_counter()
-    prep = _prepare_fast(qp, opts)
+    prep = _prepare_fast(qp, opts, rho=rho, operator=operator)
     clock.mark("operator")
-    sync(dev)
+    if timing:
+        sync(dev)
     t1 = time.perf_counter()
     sol, new_warm = _iterate_fast(qp, prep, shape, opts, warm, warm_start,
                                   clock)
+    if not timing:
+        return sol, new_warm
     sync(dev)
     t2 = time.perf_counter()
     return stamp_solution_times(sol, t2 - t0, t1 - t0), new_warm

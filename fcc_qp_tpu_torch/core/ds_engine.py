@@ -62,6 +62,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
+from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -103,6 +105,7 @@ from fcc_qp_tpu_torch.types import (
 )
 from fcc_qp_tpu_torch.utils.io import QP_KEYS
 from fcc_qp_tpu_torch.utils.timing import StageClock, stamp_solution_times, sync
+from fcc_qp_tpu_torch.utils.tree import pad_batch
 
 
 class QPBatchDS(NamedTuple):
@@ -251,6 +254,14 @@ def full_stages(shape: ProblemShape, opts: FCCQPOptions) -> Stages:
             qp, prep, shape, opts, static=True))
 
 
+def pad_batch_last(tree, multiple: int):
+    """Pad the TRAILING (batch) axis of every leaf of ``tree`` up to a
+    multiple of ``multiple`` by repeating the last instance; returns
+    ``(padded tree, original B)``. The batch-last form of
+    `utils.tree.pad_batch`."""
+    return pad_batch(tree, multiple, axis=-1)
+
+
 def resolve_device(device=None) -> torch.device:
     """Entry points run on the card unless the caller asks for the CPU:
     ``None`` means CUDA, and CUDA without a card raises."""
@@ -352,6 +363,13 @@ def _put_where(full: torch.Tensor, idx, sub: torch.Tensor, sel):
     return full
 
 
+# the constrained coordinates of the bounds last read, newest last:
+# (id(lb), id(ub), shape) -> (weak references to lb and ub, their
+# version counters at the read, the coordinates)
+_BOUNDS_READ: "OrderedDict[tuple, tuple]" = OrderedDict()
+MAX_BOUNDS_READ = 8
+
+
 def constrained_indices(qp: QPBatchDS, shape: ProblemShape,
                         full: bool = False) -> tuple:
     """Coordinate ordering of the reduced splitting: coordinates with a
@@ -360,16 +378,34 @@ def constrained_indices(qp: QPBatchDS, shape: ProblemShape,
     zero dual and identity projections, so leaving them out keeps the
     fixed point while shrinking the hot-loop operator to k x k.
     ``full=True`` keeps every coordinate (the reference's rho*I
-    splitting, permuted so the cone segment is the tail)."""
+    splitting, permuted so the cone segment is the tail).
+
+    The bounds are read once per ``lb`` / ``ub`` pair (on the card, a copy
+    that waits for the stream's queued work): a later call on the same
+    two tensors, changed in place by no torch operation since (their
+    version counters), reads nothing, so solves of one batch queue back
+    to back (``timing=False``)."""
     nv, nc, ls = shape.num_vars, shape.nc, shape.lambda_c_start
     cone = tuple(range(ls, ls + nc))
     if full:
         return tuple(i for i in range(nv) if not ls <= i < ls + nc) + cone
+    key = (id(qp.lb), id(qp.ub), shape)
+    seen = _BOUNDS_READ.get(key)
+    versions = (qp.lb._version, qp.ub._version)
+    if (seen is not None and seen[0]() is qp.lb and seen[1]() is qp.ub
+            and seen[2] == versions):
+        _BOUNDS_READ.move_to_end(key)
+        return seen[3]
     lb = qp.lb.cpu().numpy()
     ub = qp.ub.cpu().numpy()
     finite = np.isfinite(lb).any(axis=-1) | np.isfinite(ub).any(axis=-1)
     finite[ls:ls + nc] = False
-    return tuple(int(i) for i in np.where(finite)[0]) + cone
+    idx = tuple(int(i) for i in np.where(finite)[0]) + cone
+    _BOUNDS_READ[key] = (weakref.ref(qp.lb), weakref.ref(qp.ub), versions,
+                         idx)
+    while len(_BOUNDS_READ) > MAX_BOUNDS_READ:
+        _BOUNDS_READ.popitem(last=False)
+    return idx
 
 
 def _eq_residual_inf(qp: QPBatchDS, x: torch.Tensor) -> torch.Tensor:
@@ -1491,6 +1527,7 @@ def solve_batched_ds(
     stage_times: Optional[dict] = None,
     con_idx: Optional[tuple] = None,
     graphs: Optional[bool] = None,
+    timing: bool = True,
 ):
     """Batched cold (or warm-started) solve.
 
@@ -1516,7 +1553,12 @@ def solve_batched_ds(
     ``details.solve_time`` / ``factorization_time``: both stages' span
     and the operator stage's, from CUDA events around the replays
     (captured), else wall-clock spans each ending in a device
-    synchronize. ``stage_times``: a dict that receives the synchronized
+    synchronize. ``timing=False`` leaves both zero and adds no barrier: a
+    captured call then returns once its replay and copy-out are queued
+    (`core.graphs.solve_captured`, which says why calls so queued must
+    share one stream), after the reduced path's first call on a batch
+    has read its bounds; an eager one still reads the device between
+    chunks. ``stage_times``: a dict that receives the synchronized
     wall seconds of each stage (reduced: scaling, operator, approach,
     polish, exact_build, endgame, finalize; full: operator, iterate,
     finalize), the adaptive-rho refactor count ``n_refactor`` and the
@@ -1524,18 +1566,19 @@ def solve_batched_ds(
     ``n_fallback``, ``n_fallback_calls``); it adds a device synchronize at
     every stage boundary, so such a call runs uncaptured. ``con_idx``:
     the constrained coordinates (`constrained_indices`), computed from
-    ``qp`` when None; the replays pass those of their whole log.
+    ``qp`` when None (bounds on the card are read at the first call on
+    them only); the replays pass those of their whole log.
 
     Returns ``(FCCQPSolution, WarmStartDS)``.
     """
     dev = resolve_device(device)
     reduced = _reduced(opts) or con_idx is not None
-    qp = QPBatchDS(*(a.to(dev) for a in qp))
-    if warm is not None:
-        warm = WarmStartDS(*(a.to(dev) for a in warm))
     if reduced and con_idx is None:
         con_idx = constrained_indices(qp, shape,
                                       full=opts.splitting == "full")
+    qp = QPBatchDS(*(a.to(dev) for a in qp))
+    if warm is not None:
+        warm = WarmStartDS(*(a.to(dev) for a in warm))
     if graphs and dev.type != "cuda":
         raise ValueError("CUDA graphs need a CUDA device")
     if dev.type == "cuda" and stage_times is None and graphs is not False:
@@ -1543,12 +1586,14 @@ def solve_batched_ds(
 
         stages = (reduced_stages(shape, opts, con_idx) if reduced
                   else full_stages(shape, opts))
-        return solve_captured(stages, qp, warm, warm_start, dev)
+        return solve_captured(stages, qp, warm, warm_start, dev, timing)
     t0 = time.perf_counter()
     clock = StageClock(stage_times, dev)
     if reduced and len(con_idx) == 0:
         # pure equality: the whole solve is one refined KKT solve
         sol, ws = _solve_reduced_k0(qp, shape, opts)
+        if not timing:
+            return sol, ws
         sync(dev)
         t = time.perf_counter() - t0
         return stamp_solution_times(sol, t, t), ws
@@ -1559,13 +1604,16 @@ def solve_batched_ds(
     else:
         prep = _prepare_full(qp, warm, shape, opts, warm_start)
         clock.mark("operator")
-    sync(dev)
+    if timing:
+        sync(dev)
     t1 = time.perf_counter()
     if reduced:
         sol, ws = _iterate_reduced(qp, prep, shape, opts, con_idx,
                                    clock=clock)
     else:
         sol, ws = _iterate_full(qp, prep, shape, opts, clock=clock)
+    if not timing:
+        return sol, ws
     sync(dev)
     t2 = time.perf_counter()
     return stamp_solution_times(sol, t2 - t0, t1 - t0), ws

@@ -401,6 +401,9 @@ class CapturedBatch:
         self.capture_seconds: dict = {}
         self.capture_launches: dict = {}
         self.graph_handles: dict = {}
+        # recorded behind every replay, so that the capture can be dropped
+        # while a replay is queued (`wait`)
+        self._replayed = torch.cuda.Event() if self.graphs else None
 
     def load(self, qp) -> None:
         """Copy the batch ``qp`` (in the stages' layout, any device) into
@@ -514,6 +517,13 @@ class CapturedBatch:
         if between is not None:
             between()
         g_iter.replay()
+        self._replayed.record()
+
+    def wait(self) -> None:
+        """Block until the last replay queued by `run` has finished (its
+        event, not the whole device)."""
+        if self._replayed is not None:
+            self._replayed.synchronize()
 
     def result(self):
         """The solution, warm state (and cache) in the buffers, copied out
@@ -529,31 +539,47 @@ def _copy(x):
 def captured_batch(stages: Stages, B: int, device) -> CapturedBatch:
     """The `CapturedBatch` of this engine configuration, batch size and
     device, made at its first use; the least recently used of more than
-    `MAX_CAPTURES` is dropped."""
+    `MAX_CAPTURES` is dropped, once its last queued replay has finished
+    (a solve with ``timing=False`` returns before its replay runs)."""
     key = (stages.key, B, device_key(device))
     if key in _CAPTURES:
         _CAPTURES.move_to_end(key)
     else:
         _CAPTURES[key] = CapturedBatch(stages, B, device)
         if len(_CAPTURES) > MAX_CAPTURES:
-            _CAPTURES.popitem(last=False)
+            _, dropped = _CAPTURES.popitem(last=False)
+            dropped.wait()
     return _CAPTURES[key]
 
 
-def solve_captured(stages: Stages, qp, warm, warm_start: bool, device):
+def solve_captured(stages: Stages, qp, warm, warm_start: bool, device,
+                   timing: bool = True):
     """A batched solve on the card through its capture (the entry points'
     captured form: `solve_batched_ds`, `solve_batched_fast`,
     `solve_batched`): the batch (and warm state) copied into the
     capture's buffers, a replay, the results copied out (so that callers
     of the same capture, the shards of a split batch among them, never
     see each other's buffers). ``factorization_time`` is the operator
-    graph's span and ``solve_time`` both graphs', from CUDA events."""
+    graph's span and ``solve_time`` both graphs', from CUDA events.
+
+    ``timing=False`` records no event and reads nothing back: the
+    copy-in, the replay and the copy-out are queued on the current stream
+    and the call returns, its time fields zero, so calls queue back to
+    back (the CUDA driver may still hold the host at a launch while
+    earlier replays of the same graphs are queued). That is safe on one
+    stream only: the next call's copy-in
+    overwrites the buffers this call's copy-out reads, and stream order
+    alone keeps it behind that copy-out. Calls of one capture on two
+    streams need the caller's synchronization between them."""
     cap = captured_batch(stages, _batch(qp), device)
     cap.load(qp)
     if warm_start:
         if warm is None:
             raise ValueError("warm_start=True needs a warm state")
         cap.load_warm(warm)
+    if not timing:
+        cap.run(warm_start)
+        return cap.result()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
     cap.run(warm_start, between=ev[1].record)

@@ -215,15 +215,23 @@ def parity_stages(shape: ProblemShape, opts: FCCQPOptions,
 def solve(qp: QPBatch, shape: ProblemShape,
           opts: FCCQPOptions = FCCQPOptions(),
           warm: Optional[WarmStart] = None, warm_start: bool = False,
-          device=None):
+          device=None, rho=None, operator=None):
     """Solve ONE QP instance (unbatched fields). Control flow of the
     reference's Solve: duals reset unless ``warm_start``; the presolve
     runs unless ``warm_start`` (or for an equality-constrained problem);
     ADMM runs unless the problem is purely equality-constrained.
 
+    ``rho``: the penalty (a float or a 0-d tensor) in place of
+    ``opts.rho``. ``operator``: a prebuilt ``(F, x_const)`` ADMM operator
+    for that rho (`ops.kkt.admm_operator` of the instance, unbatched or
+    with a batch of one), which the solve then does not build; it must
+    match ``rho``, and the solve equals one at ``opts.replace(rho=rho)``
+    without it.
+
     Runs on ``device`` (default CUDA; raises when there is no card), in
-    the data's dtype (f32 or f64). Returns ``(FCCQPSolution, WarmStart)``
-    of the single instance."""
+    the data's dtype (f32 or f64), uncaptured: the ADMM loop is one
+    launch of the full-layout kernel, as in the captured batched solve.
+    Returns ``(FCCQPSolution, WarmStart)`` of the single instance."""
     dev = resolve_device(device)
     dt = compute_dtype(qp)
     qp1 = QPBatch(*(a[None] for a in qp.to(dev, dt).__dict__.values()))
@@ -231,7 +239,12 @@ def solve(qp: QPBatch, shape: ProblemShape,
     if warm is not None:
         w = warm.to(dev, dt)
         w1 = WarmStart(w.x[None], w.mu_x[None], w.mu_lambda_c[None])
-    sol, ws = _solve_core(qp1, shape, opts, w1, warm_start)
+    if rho is not None:
+        opts = opts.replace(rho=float(rho))
+    if operator is not None:
+        F, x_const = (a.to(dev, dt) for a in operator)
+        operator = (F, x_const) if F.dim() == 3 else (F[None], x_const[None])
+    sol, ws = _solve_core(qp1, shape, opts, w1, warm_start, operator)
     det = FCCQPDetails(**{k: v[0] for k, v in sol.details.__dict__.items()})
     return (FCCQPSolution(details=det, z=sol.z[0]),
             WarmStart(x=ws.x[0], mu_x=ws.mu_x[0],
@@ -241,7 +254,8 @@ def solve(qp: QPBatch, shape: ProblemShape,
 def solve_batched(qp: QPBatch, shape: ProblemShape,
                   opts: FCCQPOptions = FCCQPOptions(),
                   warm: Optional[WarmStart] = None, warm_start: bool = False,
-                  device=None, graphs: Optional[bool] = None):
+                  device=None, graphs: Optional[bool] = None,
+                  timing: bool = True):
     """Solve a batch of independent QPs (leading batch axis B): the
     replacement for looping the reference's Solve. Each instance gets the
     result of its own serial solve.
@@ -254,7 +268,9 @@ def solve_batched(qp: QPBatch, shape: ProblemShape,
     operator build and the solve are timed apart: ``details.solve_time``
     is the span of the whole solve and ``details.factorization_time`` the
     operator build's (CUDA events around the replays; uncaptured, wall
-    spans each ending in a device synchronize). Returns
+    spans each ending in a device synchronize). ``timing=False`` leaves
+    both zero and adds no barrier, so captured calls queue back to back
+    on the current stream (`core.graphs.solve_captured`). Returns
     ``(FCCQPSolution, WarmStart)``, batch-leading."""
     dev = resolve_device(device)
     dt = compute_dtype(qp)
@@ -267,7 +283,9 @@ def solve_batched(qp: QPBatch, shape: ProblemShape,
         from fcc_qp_tpu_torch.core.graphs import solve_captured
 
         return solve_captured(parity_stages(shape, opts, dt), qp, warm,
-                              warm_start, dev)
+                              warm_start, dev, timing)
+    if not timing:
+        return _solve_core(qp, shape, opts, warm, warm_start)
     sync(dev)
     t0 = time.perf_counter()
     operator = admm_operator(qp.Q, qp.b, qp.A_eq, qp.b_eq, opts.rho)

@@ -80,9 +80,7 @@ def ruiz_scaling(
     ls, nc = shape.lambda_c_start, shape.nc
     kw = dict(dtype=torch.float32, device=Qh.device)
 
-    d = torch.ones((n, B), **kw)
-    e = torch.ones((m, B), **kw)
-    c = torch.ones((B,), **kw)
+    d, e, c = identity_scaling(n, m, B, device=Qh.device)
     Qa = Qh.abs()
     Aa = Ah.abs()
     ba = bh.abs()
@@ -125,6 +123,17 @@ def ruiz_scaling(
         c = c * g
 
     return Scaling(d=d, e=e, c=c)
+
+
+def identity_scaling(n: int, m: int, B: int, dtype=torch.float32,
+                     device=None) -> Scaling:
+    """The unit `Scaling` of a batch of ``B`` (batch-last), on ``device``
+    (default CUDA; raises when there is no card)."""
+    from fcc_qp_tpu_torch.core.ds_engine import resolve_device
+
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    return Scaling(d=torch.ones((n, B), **kw), e=torch.ones((m, B), **kw),
+                   c=torch.ones((B,), **kw))
 
 
 def _scale_bounds(bound: torch.Tensor, inv_d: torch.Tensor) -> torch.Tensor:

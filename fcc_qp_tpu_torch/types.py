@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+import numpy as np
 import torch
 
 
@@ -50,6 +51,14 @@ class QPBatch:
         """`torch.Tensor.to` applied to every field."""
         return QPBatch(*(getattr(self, f.name).to(*args, **kw)
                          for f in dataclasses.fields(self)))
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return self.b.shape[:-1]
+
+    def astype(self, dtype) -> "QPBatch":
+        """Every field cast to ``dtype``."""
+        return self.to(dtype=dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,3 +122,21 @@ class FCCQPDetails:
 class FCCQPSolution:
     details: FCCQPDetails
     z: torch.Tensor  # (B, n) f64
+
+
+def stack_qps(qps, device=None) -> QPBatch:
+    """Stack single-instance `QPBatch`es (or dicts of the reference's npz
+    schema: ``Q, b, A_eq, b_eq, friction_coeffs, lb, ub``, numpy arrays
+    or tensors) into one batch-leading `QPBatch` on ``device`` (default
+    CUDA; raises when there is no card), each field in its given
+    dtype."""
+    from fcc_qp_tpu_torch.core.ds_engine import resolve_device
+
+    dev = resolve_device(device)
+    names = [f.name for f in dataclasses.fields(QPBatch)]
+    rows = [[getattr(q, k) if isinstance(q, QPBatch) else q[k]
+             for k in names] for q in qps]
+    tensor = lambda a: (a if isinstance(a, torch.Tensor)
+                        else torch.from_numpy(np.asarray(a)))
+    return QPBatch(*(torch.stack([tensor(r[i]).to(dev) for r in rows])
+                     for i in range(len(names))))

@@ -2,8 +2,9 @@
 
 PyTorch launches CUDA work asynchronously: a host clock read right after
 a call measures the enqueue, not the work. `sync` is the barrier every
-host-clock span must end in, and `cuda_span` times a region with CUDA
-events on the current stream.
+host-clock span must end in, `cuda_span` times a region with CUDA
+events on the current stream, and `timed` is the JAX package's best-of-N
+wall of a call.
 """
 
 from __future__ import annotations
@@ -21,6 +22,45 @@ def sync(device=None) -> None:
     if device is None or torch.device(device).type == "cuda":
         if torch.cuda.is_available():
             torch.cuda.synchronize(device)
+
+
+def _cuda_devices(tree, out: set) -> set:
+    """The CUDA devices of the tensors in ``tree`` (a tensor, dataclass,
+    named tuple, tuple, list or dict of them)."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            out.add(tree.device)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            _cuda_devices(getattr(tree, f.name), out)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _cuda_devices(v, out)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            _cuda_devices(v, out)
+    return out
+
+
+def timed(fn, *args, reps: int = 3, **kw):
+    """Best-of-``reps`` wall time of ``fn(*args, **kw)``, each call ended
+    by a true barrier: a synchronize of every card that holds a tensor of
+    its result (the CPU needs none). The first call (which captures or
+    builds what later calls replay) is excluded. Returns ``(best_seconds,
+    last_result)``."""
+    def call():
+        out = fn(*args, **kw)
+        for dev in _cuda_devices(out, set()):
+            torch.cuda.synchronize(dev)
+        return out
+
+    out = call()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = call()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
 
 
 def stamp_solution_times(sol, solve_time: float, factor_time: float):

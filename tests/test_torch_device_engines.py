@@ -36,7 +36,7 @@ from fcc_qp_tpu.core.ds_engine import solve_batched_ds as jsolve
 from fcc_qp_tpu.core.ds_engine import to_ds_batch as jto
 from fcc_qp_tpu import FCCQPOptions as JOpts
 from fcc_qp_tpu import ProblemShape as JShape
-from fcc_qp_tpu_torch.core.batched import fast_stages
+from fcc_qp_tpu_torch.core.batched import Given, fast_stages
 from fcc_qp_tpu_torch.core.ds_engine import full_stages
 from fcc_qp_tpu_torch.core.graphs import CapturedBatch
 from fcc_qp_tpu_torch.core.solver import parity_stages
@@ -96,9 +96,12 @@ def _engine(kind, opts):
                     qp, shape, o, warm=w, warm_start=ws, device="cpu",
                     stage_times=st))
     if kind == "fast":
-        return (fast_stages(shape, o), _lead(torch.float64),
-                lambda qp, w, ws, st: T.solve_batched_fast(
-                    qp, shape, o, warm=w, warm_start=ws, device="cpu",
+        lead = _lead(torch.float64)
+        return (fast_stages(shape, o),
+                lambda st: Given(lead(st), torch.full(
+                    (B,), o.rho, dtype=torch.float64), None),
+                lambda g, w, ws, st: T.solve_batched_fast(
+                    g.qp, shape, o, warm=w, warm_start=ws, device="cpu",
                     stage_times=st))
     dt = torch.float32 if kind == "parity32" else torch.float64
     return (parity_stages(shape, o, dt), _lead(dt),

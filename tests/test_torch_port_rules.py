@@ -1,4 +1,5 @@
-"""Rules of the port (`fcc_qp_tpu_torch`): it imports neither JAX nor the
+"""Rules of the port (`fcc_qp_tpu_torch`, `chip_smoke.py` and
+`examples/replay_walking_torch.py`): it imports neither JAX nor the
 JAX package, pins full-f32 matmuls, runs on the card unless asked for
 the CPU, solves every option of the option set (those an earlier slice
 rejected included), sends CPU tensors to the kernels' plain versions
@@ -44,6 +45,13 @@ import fcc_qp_tpu_torch.core.batched, fcc_qp_tpu_torch.core.serving
 import fcc_qp_tpu_torch.bench
 import fcc_qp_tpu_torch.parallel, fcc_qp_tpu_torch.parallel.scaling_bench
 import fcc_qp_tpu_torch.utils.io
+import importlib.util
+spec = importlib.util.spec_from_file_location(
+    "replay_walking_torch", "examples/replay_walking_torch.py")
+example = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(example)
+r = example.replay(["--steps", "2", "--mode", "loop", "--device", "cpu"])
+assert r["z"].shape == (2, 60)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "fcc_qp_tpu.")))
 print("LEAKED", bad)
@@ -67,6 +75,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "examples", "replay_walking_torch.py")
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -103,6 +112,25 @@ def test_bench_entry_point_is_scanned_and_has_no_fallback():
     tree = ast.parse(open(path).read())
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     assert bench.parse_args([]).device == "cuda"
+
+
+def test_walking_example_is_scanned_and_has_no_fallback():
+    """The walking-log example is among the sources the import rule
+    scans (and the subprocess check runs it); it catches nothing, and the
+    card is its default device."""
+    import ast
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", "replay_walking_torch.py")
+    assert path in set(_port_sources())
+    tree = ast.parse(open(path).read())
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    spec = importlib.util.spec_from_file_location("replay_walking_torch",
+                                                  path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    assert example.parse_args([]).device == "cuda"
+    assert example.parse_args([]).out != "replay_plots.png"
 
 
 def test_tf32_pinned_off():

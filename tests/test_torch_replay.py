@@ -10,8 +10,13 @@ streams x 4 steps).
 Every JAX replay here runs step by step through the same compiled
 function that the JAX package's `replay_ds_streams` scans over
 (`_solve_ds_reduced_jit` with its operator cache, cold for step 0 and
-warm after), always on batches of S = 16, so the module compiles two
-JAX programs and reuses them for every test.
+warm after), always on batches of S = 16, so the JAX side compiles two
+programs and reuses them for every test. It runs in a process of its
+own (`tests/torch_replay_jax_worker.py`, one per test session, which
+does not read the test workers' shared compilation cache: that is where
+they have crashed), started by the first test of the module, which
+overlaps it with the port's side; each test waits for the part it
+compares, and fails at once when the worker has ended without it.
 
 The long-log tests take three streams of the bench's long walking log
 (`generate_osc_sequence(CASSIE, 65536, seed=0, smoothness=0.002)` in
@@ -25,18 +30,21 @@ Stream 3268 also holds two steps that run hundreds of ADMM iterations,
 where the lazy path's f32 operator rounds differently from XLA's.
 """
 
+import os
+import subprocess
+import sys
+import time
+import types
+
 import numpy as np
 import pytest
 import torch
+from filelock import FileLock
 
 torch.set_num_threads(1)
 
 import fcc_qp_tpu_torch as T
-from fcc_qp_tpu.core import ds_engine as jeng
-from fcc_qp_tpu.models.osc import (CASSIE, generate_osc_batch,
-                                    generate_osc_sequence)
-from fcc_qp_tpu.ops.ds_linalg import kkt_inverse_f32_refresh as jrefresh
-from fcc_qp_tpu.ops.ds_linalg import kkt_inverse_f32_seed as jseed
+from fcc_qp_tpu.models.osc import CASSIE, generate_osc_sequence
 from fcc_qp_tpu.utils.io import stack_qp_dicts
 from fcc_qp_tpu_torch.core import ds_engine as teng
 from fcc_qp_tpu_torch.ops.ds_linalg import kkt_inverse_f32_refresh
@@ -52,10 +60,79 @@ TOPTS = T.FCCQPOptions(**{
 DRIFT_STREAMS = ()
 LONG_STREAMS = (1938, 2889, 3268)
 LONG_STEPS = 16
+HERE = os.path.dirname(os.path.abspath(__file__))
+WORKER = os.path.join(HERE, "torch_replay_jax_worker.py")
+# runs the worker, then writes its exit status (128 + the signal's number
+# where a signal ended it) to <out_dir>/exit_status: $0 is the
+# interpreter, $1 the worker, $2 the output directory
+SUPERVISOR = ('"$0" "$@"; rc=$?; echo $rc > "$2/.exit_status"; '
+              'mv "$2/.exit_status" "$2/exit_status"; exit $rc')
+# the JAX worker's whole run, compiles included, takes about 225 s alone
+# on an 8-core host, and up to about twice that beside the suite's other
+# workers; past this many seconds from the module's start every wait fails
+JAX_DEADLINE_S = 600
+
+
+class _JaxSide:
+    """The JAX worker's output directory, which every test process reads:
+    its parts, its traceback (``error.txt``) and, once it has ended by
+    any means, its exit status."""
+
+    def __init__(self, out):
+        self.out = out
+        self.deadline = time.monotonic() + JAX_DEADLINE_S
+
+    def part(self, name):
+        """The arrays of one part, waited for."""
+        path = self.out / f"{name}.npz"
+        while not path.exists():
+            err = self.out / "error.txt"
+            if err.exists():
+                pytest.fail("the JAX worker failed:\n"
+                            + err.read_text()[-4000:])
+            status = self.out / "exit_status"
+            if status.exists() and not path.exists():
+                pytest.fail(f"the JAX worker exited ("
+                            f"{status.read_text().strip()}) without the "
+                            f"{name} part")
+            if time.monotonic() > self.deadline:
+                pytest.fail(f"no {name} part from the JAX worker in "
+                            f"{JAX_DEADLINE_S} s")
+            time.sleep(0.5)
+        return dict(np.load(path))
 
 
 @pytest.fixture(scope="module")
-def log():
+def jax_side(tmp_path_factory):
+    """One JAX worker per test session: the first test process to get
+    here starts it (under a lock in the session's shared temporary
+    directory), the others read its files. Its persistent compilation
+    cache is ``$FCCQP_XLA_CACHE_torch_replay`` where that variable is
+    set, else off."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    out = base / "torch_replay_jax"
+    proc = None
+    with FileLock(str(out) + ".lock"):
+        if not out.exists():
+            out.mkdir()
+            cache = os.environ.get("FCCQP_XLA_CACHE")
+            argv = [sys.executable, WORKER, str(out)]
+            if cache:
+                argv.append(cache + "_torch_replay")
+            with open(out / "worker.log", "w") as log_file:
+                proc = subprocess.Popen(
+                    ["/bin/sh", "-c", SUPERVISOR, *argv],
+                    stdout=log_file, stderr=subprocess.STDOUT,
+                    cwd=os.path.dirname(HERE))
+    yield _JaxSide(out)
+    if proc is not None:
+        proc.wait(timeout=JAX_DEADLINE_S)
+
+
+@pytest.fixture(scope="module")
+def log(jax_side):
     return stack_qp_dicts(
         generate_osc_sequence(CASSIE, S * STEPS, seed=0, smoothness=0.002)
     )
@@ -66,90 +143,52 @@ def _step(stacked, t):
     return {k: v[t::STEPS] for k, v in stacked.items()}
 
 
-def _np(a):
-    return np.array(a)
+def _solution(arrays, prefix):
+    """A solution-like object (``.details.<field>``, ``.z``) of the
+    worker's arrays ``<prefix>_<field>``."""
+    fields = {k[len(prefix) + 1:]: v for k, v in arrays.items()
+              if k.startswith(prefix + "_")}
+    z = fields.pop("z")
+    return types.SimpleNamespace(details=types.SimpleNamespace(**fields),
+                                 z=z)
 
 
-def _con_idx(stacked):
-    return jeng.constrained_indices(jeng.to_ds_batch(stacked), CASSIE.shape)
-
-
-def _jax_replay(stacked, steps, con_idx):
-    """The JAX package's warm replay of ``stacked`` (S = 16 streams of
-    ``steps`` consecutive rows), one jitted step at a time: the function
-    its `replay_ds_streams` scans over, with the same carried warm state
-    and operator cache. Returns the details and z in global row order."""
-    sols, ws, cache = [], None, None
-    for t in range(steps):
-        sol, ws, cache = jeng._solve_ds_reduced_jit(
-            jeng.to_ds_batch({k: v[t::steps] for k, v in stacked.items()}),
-            ws, CASSIE.shape, BENCH_OPTS, t > 0, con_idx, cache=cache,
-            with_cache=True,
-        )
-        sols.append(sol)
-
-    def glob(get):
-        a = np.stack([np.asarray(get(s)) for s in sols], axis=1)
-        return a.reshape(-1, *a.shape[2:])
-
-    names = [f for f in sols[0].details.__dataclass_fields__]
-    details = {n: glob(lambda s, n=n: getattr(s.details, n)) for n in names}
-    return type(sols[0])(details=type(sols[0].details)(**details),
-                         z=glob(lambda s: s.z))
-
-
-def test_kkt_refresh_matches_jax(log):
+def test_kkt_refresh_matches_jax(jax_side):
     """A seed built on step t, refreshed against step t+1 (and, for the
     last four instances, against unrelated QPs, where the refresh cannot
     contract): same good/bad flags, same inverse."""
-    qp0 = jeng.to_ds_batch(_step(log, 0))
-    far = stack_qp_dicts(generate_osc_batch(CASSIE, 4, seed=3))
-    nxt = _step(log, 1)
-    for k in nxt:
-        nxt[k] = np.concatenate([nxt[k][:12], far[k]])
-    qp1 = jeng.to_ds_batch(nxt)
-    con_idx = jeng.constrained_indices(jeng.to_ds_batch(log), CASSIE.shape)
-    qs0, sc = jeng._scale_reduced(qp0, CASSIE.shape, BENCH_OPTS)
-    qs1, _ = jeng._scale_reduced(qp1, CASSIE.shape, BENCH_OPTS, carried=sc)
-    mask = np.zeros(CASSIE.shape.num_vars, np.float32)
-    mask[list(con_idx)] = 1.0
-    rho = (np.float32(BENCH_OPTS.rho) * mask[:, None]
-           * np.ones((1, S), np.float32))
-    X0, _ = jseed(qs0.Q, qs0.A_eq, rho)
-    Xj, rj = jrefresh(X0, qs1.Q, qs1.A_eq, rho)
+    j = jax_side.part("refresh")
     Xt, rt = kkt_inverse_f32_refresh(
-        torch.from_numpy(np.ascontiguousarray(np.moveaxis(_np(X0), -1, 0))),
-        torch.from_numpy(_np(qs1.Q.hi)), torch.from_numpy(_np(qs1.A_eq.hi)),
-        torch.from_numpy(rho),
+        torch.from_numpy(np.ascontiguousarray(np.moveaxis(j["X0"], -1, 0))),
+        torch.from_numpy(j["Q1"]), torch.from_numpy(j["A1"]),
+        torch.from_numpy(j["rho"]),
     )
-    good = _np(rj) <= 0.5
+    good = j["rj"] <= 0.5
     np.testing.assert_array_equal(rt.numpy() <= 0.5, good)
     assert good[:12].all() and not good[12:].any()
-    Xj = np.moveaxis(_np(Xj), -1, 0)
+    Xj = np.moveaxis(j["Xj"], -1, 0)
     scale = np.abs(Xj[good]).max()
     assert np.abs(Xt.numpy()[good] - Xj[good]).max() <= 1e-4 * scale
 
 
-def test_one_warm_step_from_the_same_carried_state(log):
+def _con_idx(jax_side):
+    return tuple(int(i) for i in jax_side.part("refresh")["con_idx"])
+
+
+def test_one_warm_step_from_the_same_carried_state(log, jax_side):
     """JAX solves step 0 cold with its operator cache; its warm state and
     cache, converted, warm-start step 1 in both packages."""
-    con_idx = _con_idx(log)
-    step0, step1 = _step(log, 0), _step(log, 1)
-    _, jws, jcache = jeng._solve_ds_reduced_jit(
-        jeng.to_ds_batch(step0), None, CASSIE.shape, BENCH_OPTS, False,
-        con_idx, with_cache=True,
-    )
-    jsol, _, jcache1 = jeng._solve_ds_reduced_jit(
-        jeng.to_ds_batch(step1), jws, CASSIE.shape, BENCH_OPTS, True,
-        con_idx, cache=jcache, with_cache=True,
-    )
+    con_idx = _con_idx(jax_side)
+    step1 = _step(log, 1)
+    j = jax_side.part("warm_step")
+    jsol = _solution(j, "sol")
     tws = T.warm_start_from_numpy(
-        jws.x.hi, jws.x.lo, jws.mu_x.hi, jws.mu_x.lo, jws.mu_lambda_c.hi,
-        jws.mu_lambda_c.lo, jws.rho, device="cpu",
+        j["x_hi"], j["x_lo"], j["mu_x_hi"], j["mu_x_lo"], j["mu_lc_hi"],
+        j["mu_lc_lo"], j["ws_rho"], device="cpu",
     )
     tcache = T.operator_cache_from_numpy(
-        jcache.kkt_seed, jcache.polish_seed, jcache.polish_cls,
-        jcache.scales.d, jcache.scales.e, jcache.scales.c, device="cpu",
+        j["kkt_seed"], j["polish_seed"], j["polish_cls"], j["d"], j["e"],
+        j["c"], device="cpu",
     )
     tsol, _, tcache1 = teng._solve_ds_reduced(
         T.to_ds_batch(step1, device="cpu"), tws, CASSIE.shape, TOPTS, True,
@@ -164,21 +203,19 @@ def test_one_warm_step_from_the_same_carried_state(log):
     assert (dn[~iterated] == 0).all() and (dn <= 1).all()
     _polish_bars(step1, jsol, tsol)
     np.testing.assert_array_equal(tcache1.polish_cls.numpy(),
-                                  _np(jcache1.polish_cls))
+                                  j["polish_cls1"])
     for name in ("d", "e", "c"):
         np.testing.assert_array_equal(
-            getattr(tcache1.scales, name).numpy(),
-            _np(getattr(jcache1.scales, name)))
+            getattr(tcache1.scales, name).numpy(), j[f"{name}1"])
 
 
 @pytest.fixture(scope="module")
-def replays(log):
-    jsol = _jax_replay(log, STEPS, _con_idx(log))
+def replays(log, jax_side):
     tsol, _ = T.replay_ds_streams(
         T.to_ds_batch(log, device="cpu"), CASSIE.shape, TOPTS, n_streams=S,
         device="cpu",
     )
-    return jsol, tsol
+    return _solution(jax_side.part("replay"), "replay"), tsol
 
 
 def test_replay_converges_like_jax(log, replays):
@@ -214,30 +251,20 @@ def test_replay_times_stamped(replays):
 
 
 @pytest.fixture(scope="module")
-def long_replays(log):
-    # the whole log: the generator sets the actuator bounds from a
-    # quantile over every step, so a shorter log is other data
-    qps = generate_osc_sequence(CASSIE, 65536, seed=0, smoothness=0.002)
-    sub = stack_qp_dicts([qps[s * LONG_STEPS + t]
-                          for s in LONG_STREAMS for t in range(LONG_STEPS)])
-    del qps
+def long_replays(jax_side):
+    # the three streams' steps of the bench's whole log (its actuator
+    # bounds are a quantile over every step, so a shorter log is other
+    # data), as the worker generated them; its JAX replay ran them on S =
+    # 16 streams (the three, repeated), the batch its compiled steps
+    # take, every instance solved independently of the others
+    j = jax_side.part("long")
+    sub = {k[3:]: v for k, v in j.items() if k.startswith("qp_")}
     n = len(LONG_STREAMS)
-    # JAX on S = 16 streams (the three, repeated), the batch its compiled
-    # steps take; every instance is solved independently of the others
-    reps = -(-S // n)
-    rows = np.concatenate([np.arange(n * LONG_STEPS)] * reps)
-    jsub = {k: v[rows[:S * LONG_STEPS]] for k, v in sub.items()}
-    jfull = _jax_replay(jsub, LONG_STEPS, _con_idx(log))
-    keep = slice(0, n * LONG_STEPS)
-    jsol = type(jfull)(
-        details=type(jfull.details)(**{
-            f: getattr(jfull.details, f)[keep]
-            for f in jfull.details.__dataclass_fields__}),
-        z=jfull.z[keep])
+    assert sub["b"].shape[0] == n * LONG_STEPS
     tsol, _ = T.replay_ds_streams(T.to_ds_batch(sub, device="cpu"),
                                   CASSIE.shape, TOPTS, n_streams=n,
                                   device="cpu")
-    return jsol, tsol
+    return _solution(j, "replay"), tsol
 
 
 def test_loose_warm_acceptances_are_the_references(long_replays):

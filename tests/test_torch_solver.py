@@ -5,7 +5,9 @@ oracle, on the CPU, at the options of `tests/test_solver.py`.
 The port runs its ADMM loop in chunks of the full-layout kernel's plain
 version (the wrapper's choice for CPU tensors); the JAX package runs a
 vmapped `lax.while_loop`. Bars: per-instance n_iter and status equal,
-|dz| <= 1e-9."""
+|dz| <= 1e-9. The module's JAX programs are small (about 25 s of
+compiles in all) and compile without the test workers' shared
+persistent cache, where a worker running this module has crashed."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import fcc_qp_tpu as J
 import fcc_qp_tpu_torch as T
 from oracle import OracleFCCQP
 from test_solver import OPTS, SHAPE, random_qp
+from test_torch_public_surface import without_shared_cache  # noqa: F401
 
 torch.set_num_threads(1)
 
