@@ -238,7 +238,24 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases
    versions bit for bit, timed with bounds (``*_example``,
    ``*_untimed``, ``*_solve_operator``, ``*_fast_operator`` keys).
    `python3 exp_surface_phase.py` runs it alone.
-20. One JSON line with a record per kernel (the first chunk's numbers
+20. The polish's Newton-Schulz kernel (`polish_ns_phase`;
+   `ops.polish.polish_ns`, `csrc/polish_ns.cu`): the chains' inputs of
+   an eager bench-flag solve of each configuration at B = 8192 (Cassie:
+   phase 2's batch; the humanoid: `generate_osc_batch(HUMANOID, 8192,
+   seed=0)`): the first seed's KKTs and the largest refresh's seeds and
+   KKTs. The kernel against the batched cuBLAS chain (the plain version
+   on the card) on the full batch and on a gathered rebuild pass of
+   1024 (half of it masked off): the seeds, the refreshed X_best and the
+   pass's kept slots hold the chain's values (cuBLAS sums in ascending k
+   at these batches, as the kernel does), the refresh's residuals agree
+   to their sums' rounding and give the same rebuilds, both sides'
+   residuals ||M X - I||_inf printed; the masked-off and the untouched
+   slots unchanged bit for bit. Each timed with CUDA events (ms per
+   launch, the wrapper's operations included) beside the chain's and the
+   bound (2 N2^3 flops a product at 67 TFLOP/s against M and X at 3.35
+   TB/s); the launches on the main path (phases 2 and 5, each above 0);
+   ptxas registers, stack and spills (no stack, no spills).
+21. One JSON line with a record per kernel (the first chunk's numbers
    under the plain keys, the straggler chunk's under ``*_tail``, the
    humanoid's under ``*_k47`` / ``*_k76`` / ``*_n76``, the warm step's
    under ``*_warm``, the drop-in chunk's under ``*_b1``, alpha = 1.6's
@@ -3432,6 +3449,219 @@ def surface_phase(ex, qp, bench, stacked, solver_mod, out_dir):
     return launches, cases, report
 
 
+def ulp_gap(a, b) -> int:
+    """The largest distance in units in the last place between the f32
+    tensors ``a`` and ``b`` over the entries finite in both (-1 where
+    one is finite and the other not)."""
+    import torch
+
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    if not bool((fin == (torch.isfinite(a) | torch.isfinite(b))).all()):
+        return -1
+    order = lambda t: (lambda i: torch.where(i < 0, -(i & 0x7FFFFFFF), i))(
+        t[fin].contiguous().view(torch.int32).long())
+    return int((order(a) - order(b)).abs().max()) if bool(fin.any()) else 0
+
+
+def bits_equal(a, b) -> bool:
+    """Whether the f32 tensors ``a`` and ``b`` hold the same bits."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def values_equal(a, b) -> bool:
+    """Whether the tensors ``a`` and ``b`` hold the same values: NaN where
+    the other has NaN, equal elsewhere (zero signs and NaN payloads
+    aside)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.isnan(), b.isnan()) and \
+        torch.equal(torch.where(a.isnan(), 0.0, a),
+                    torch.where(b.isnan(), 0.0, b))
+
+
+def ns_resid_close(got, want, N2):
+    """Whether the residuals ``got`` and ``want`` (B,) of the same iterates,
+    each a row sum of N2 nonnegative terms added in its own order, agree
+    to those sums' rounding: inf in the same instances, elsewhere
+    |got - want| <= 2 N2 2^-24 |want| (two orders of the same N2 terms).
+    Returns ``(ok, largest ulp gap)``."""
+    import torch
+
+    fin = torch.isfinite(want)
+    ok = torch.equal(fin, torch.isfinite(got)) and bool(
+        ((got - want)[fin].abs() <= 2 * N2 * 2.0 ** -24
+         * want[fin].abs()).all())
+    return ok, ulp_gap(got, want)
+
+
+def ns_chain_inputs(solve):
+    """Runs ``solve()`` with `ops.polish.polish_ns` wrapped; returns copies
+    of the KKTs of its first full-batch seed (``seed``) and of the seeds
+    and KKTs of its largest refresh (``refresh``: ``(X, Mb)``)."""
+    from fcc_qp_tpu_torch.ops import polish
+
+    orig, got = polish.polish_ns, {}
+
+    def record(Mb, X=None, steps=polish.NS_REFRESH_STEPS, **kw):
+        if X is None and kw.get("out") is None:
+            got.setdefault("seed", Mb.clone())
+        elif X is not None and ("refresh" not in got or Mb.shape[0]
+                                > got["refresh"][1].shape[0]):
+            got["refresh"] = (X.clone(), Mb.clone())
+        return orig(Mb, X, steps, **kw)
+
+    # the wrapper counts its launches on the module's name
+    record.launches = orig.launches
+    polish.polish_ns = record
+    try:
+        solve()
+    finally:
+        polish.polish_ns = orig
+        orig.launches = record.launches
+    return got
+
+
+def ns_bound_ms(B, N2, products, mats):
+    """The least time for ``B`` chains of ``products`` (N2 x N2) f32
+    products that move ``mats`` matrices of N2^2 words each per chain."""
+    t_ops = B * products * 2 * N2 ** 3 / PEAK_FLOPS["f32"]
+    t_bytes = B * mats * N2 * N2 * 4 / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ns_compare(tag, got, want, Mb):
+    """Kernel against the batched chain: bit equality, else equal values
+    and the largest ulp gap, and both sides' residuals ||Mb X - I||_inf
+    (max)."""
+    from fcc_qp_tpu_torch.ops import polish
+
+    r_k = float(polish._ns_resid(Mb @ got).max())
+    r_p = float(polish._ns_resid(Mb @ want).max())
+    same = bits_equal(got, want)
+    values = same or values_equal(got, want)
+    gap = 0 if same else ulp_gap(got, want)
+    log(f"[polish_ns] {tag}: B={Mb.shape[0]} N2={Mb.shape[-1]} "
+        + ("bit for bit the cuBLAS chain" if same else
+           f"equal values: {values}, largest ulp gap {gap}")
+        + f"; residual max kernel {r_k:.3e}, chain {r_p:.3e}")
+    return dict(bit_equal=same, values_equal=values, ulp_gap=gap,
+                resid_kernel=r_k, resid_chain=r_p)
+
+
+def polish_ns_phase(qp, bench, launches_bench, launches_replay):
+    """Phase 20: the polish's Newton-Schulz kernel against the batched
+    cuBLAS chain on the chains' inputs of a bench-flag solve of each
+    configuration, timed with bounds. At these batches (8192, and a
+    gathered pass of 1024) cuBLAS sums each product in ascending k as the
+    kernel does, so the seeds, the refreshed X_best and the masked pass's
+    kept slots must hold the chain's values, and the refresh's residuals
+    agree to their sums' rounding (`ns_resid_close`). Returns the
+    kernel's record."""
+    import torch
+
+    from fcc_qp_tpu_torch import solve_batched_ds, to_ds_batch
+    from fcc_qp_tpu_torch.models.osc import (CASSIE, HUMANOID,
+                                             generate_osc_batch)
+    from fcc_qp_tpu_torch.ops import polish
+    from fcc_qp_tpu_torch.utils.io import stack_qp_dicts
+
+    import re
+
+    polish.build_polish_ns()
+    info = polish.ns_build_info
+    # the thread tile's instantiation (rows, column quads)
+    ptxas = {}
+    for name, v in info["ptxas"].items():
+        m = re.search(r"polish_ns_chainILi(\d+)ELi(\d+)E", name)
+        if m:
+            ptxas[f"polish_ns_chain<{m.group(1)}, {m.group(2)}>"] = v
+    check(sorted(ptxas) == ["polish_ns_chain<8, 2>"],
+          f"ptxas report names {sorted(info['ptxas'])}")
+    log(f"[polish_ns] build {info['seconds']:.2f} s; ptxas (registers, "
+        f"stack, spill stores, spill loads): {json.dumps(ptxas)}")
+    for name, (_, frame, st, ld) in ptxas.items():
+        check((frame, st, ld) == (0, 0, 0), f"{name}: stack or spills")
+    hqp = to_ds_batch(stack_qp_dicts(generate_osc_batch(HUMANOID, B,
+                                                        seed=0)))
+    rec = dict(name="polish_ns", route="cuda",
+               source="fcc_qp_tpu_torch/csrc/polish_ns.cu",
+               replaces="none (the polish's NS chains, batched cuBLAS "
+               "products before)", ptxas=ptxas, library_ms=None,
+               launches_bench=launches_bench["polish_ns"],
+               launches_replay=launches_replay["polish_ns"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for model, data in (("cassie", qp), ("humanoid", hqp)):
+        spec = CASSIE if model == "cassie" else HUMANOID
+        opts = bench.replace(polish_newton_steps=spec.polish_newton_steps)
+        ins = ns_chain_inputs(lambda: solve_batched_ds(
+            data, spec.shape, opts, graphs=False))
+        Mb = ins["seed"]
+        X, Mr = ins["refresh"]
+        N2 = Mb.shape[-1]
+        reps = -(-B // Mr.shape[0])     # the refresh at the full batch
+        X, Mr = X.repeat(reps, 1, 1)[:B], Mr.repeat(reps, 1, 1)[:B]
+        kern, plain = polish.polish_ns, polish.polish_ns_plain
+        seed = ns_compare(f"{model} seed", kern(Mb), plain(Mb), Mb)
+        check(seed["values_equal"], f"{model}: the kernel's seeds differ "
+              f"from the chain's (largest ulp gap {seed['ulp_gap']})")
+        (xk, rk), (xp, rp) = kern(Mr, X), plain(Mr, X)
+        refresh = ns_compare(f"{model} refresh", xk, xp, Mr)
+        r_close, r_gap = ns_resid_close(rk, rp, N2)
+        refresh.update(r_best_bit_equal=bits_equal(rk, rp),
+                       r_best_ulp_gap=r_gap,
+                       rebuild_same=bool(((rk > 0.3) == (rp > 0.3)).all()),
+                       rebuilds=int((rk > 0.3).sum()))
+        log(f"[polish_ns] {model} refresh: r_best largest ulp gap {r_gap}; "
+            f"rebuilds {refresh['rebuilds']}")
+        check(refresh["values_equal"], f"{model}: the kernel's refreshed "
+              f"X_best differs from the chain's (largest ulp gap "
+              f"{refresh['ulp_gap']})")
+        check(r_close, f"{model}: the refresh's residuals differ from the "
+              f"chain's beyond their rounding (largest ulp gap {r_gap})")
+        check(refresh["rebuild_same"], f"{model}: the refresh's rebuild "
+              "decisions differ from the chain's")
+        C = 1024
+        idx = torch.randperm(B, device="cuda", generator=gen)[:C]
+        keep = torch.rand(C, device="cuda", generator=gen) < 0.5
+        base = torch.randn(Mb.shape, device="cuda", generator=gen)
+        out_k = kern(Mb[idx], out=base.clone(), idx=idx, keep=keep)
+        out_p = plain(Mb[idx], out=base.clone(), idx=idx, keep=keep)
+        skipped = torch.ones(B, dtype=torch.bool, device="cuda")
+        skipped[idx[keep]] = False
+        check(bits_equal(out_k[skipped], base[skipped]),
+              f"{model}: the masked pass wrote a slot it skips")
+        masked = ns_compare(f"{model} masked pass of {C}",
+                            out_k[idx[keep]], out_p[idx[keep]],
+                            Mb[idx[keep]])
+        check(masked["values_equal"], f"{model}: the masked pass's seeds "
+              f"differ from the chain's (largest ulp gap "
+              f"{masked['ulp_gap']})")
+        times = {}
+        for case, k_fn, p_fn, b, prods, mats in (
+                ("seed", lambda: kern(Mb), lambda: plain(Mb), B, 80, 2),
+                ("refresh", lambda: kern(Mr, X), lambda: plain(Mr, X), B,
+                 5, 3),
+                ("seed_1024", lambda: kern(Mb[:C]), lambda: plain(Mb[:C]),
+                 C, 80, 2)):
+            ms, _ = time_cuda(k_fn, reps=5)
+            plain_ms, _ = time_cuda(p_fn, reps=3)
+            bound, by = ns_bound_ms(b, N2, prods, mats)
+            times[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                               bound_by=by)
+            log(f"[polish_ns] {model} {case}: B={b} N2={N2} kernel "
+                f"{ms:.6f} ms, cuBLAS chain {plain_ms:.6f} ms, bound "
+                f"{bound:.6f} ms ({by}; {prods} products)")
+        rec[model] = dict(N2=N2, seed=seed, refresh=refresh, masked=masked,
+                          times=times)
+    log(f"[polish_ns] launches: bench solve {rec['launches_bench']}, replay "
+        f"phase {rec['launches_replay']}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3555,6 +3785,8 @@ def main() -> int:
     for name in REDUCED_KERNELS:
         total = launches_bench[name] + launches_tp[name]
         check(total > 0, f"{name} was never launched")
+    check(launches_bench["polish_ns"] > 0, "polish_ns was never launched "
+          "in the captured bench solve")
 
     # humanoid (k = 47 > 32): the kernels' two-slot layout. Its
     # convergence is not checked (it fails in the reference itself).
@@ -3624,6 +3856,8 @@ def main() -> int:
     # 5. warm replay, and each kernel on its last warm-step chunk
     (launches_replay, rec_replay, log_stacked, replay_warm,
      replay_graphs, replay_sols) = replay_phase(engine, bench)
+    check(launches_replay["polish_ns"] > 0, "polish_ns was never launched "
+          "in the warm replay")
     for (name, kernel, plain, prec, _), r in zip(specs, records):
         r["launches_replay"] = launches_replay[name]
         r["launches"] += launches_replay[name]
@@ -3926,7 +4160,11 @@ def main() -> int:
     log("[surface] the public surface and the example (phase 19): "
         + json.dumps(surface_report))
 
-    # 20. result lines
+    # 20. the polish's Newton-Schulz kernel
+    records.append(polish_ns_phase(qp, bench, launches_bench,
+                                   launches_replay))
+
+    # 21. result lines
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

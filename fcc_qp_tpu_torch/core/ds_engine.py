@@ -147,7 +147,7 @@ class OperatorCache(NamedTuple):
 
     A control-rate replay moves the QP data ~0.1% a step, so the seed
     builds (the Schur KKT inverse, `ops.ds_linalg.kkt_inverse_f32_seed`,
-    and the polish KKT inverse, `ops.polish._polish_seed_f32`) are
+    and the polish KKT inverse, `ops.polish.polish_ns`) are
     replaced by a few guarded Newton-Schulz refresh steps against the
     new step's data. Every refreshed seed is residual-checked and falls
     back to the cold build per instance.

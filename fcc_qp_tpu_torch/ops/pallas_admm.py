@@ -651,9 +651,13 @@ admm_chunk_f32.launches = 0
 admm_chunk_full_f64.launches = 0
 admm_chunk_full_f32.launches = 0
 
-# in the order of the library's kernel numbers (admm_chunk_blocks_per_sm)
+from fcc_qp_tpu_torch.ops.polish import polish_ns  # noqa: E402
+
+# every hand kernel's wrapper (`core.graphs` counts their launches under
+# capture): the ADMM chunks in the order of their library's kernel numbers
+# (admm_chunk_blocks_per_sm), then the polish's Newton-Schulz chains
 KERNELS = (admm_chunk_f64, admm_chunk_f32, admm_chunk_full_f64,
-           admm_chunk_full_f32)
+           admm_chunk_full_f32, polish_ns)
 
 
 def reset_launch_counts() -> None:

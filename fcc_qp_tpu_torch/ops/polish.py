@@ -203,32 +203,182 @@ def _assemble_m2_masked(Qh_aug, pin, A2h, Dtail):
     return Mb
 
 
-def _ns_refresh_guarded(X, Mb, steps: int):
-    """Guarded Newton-Schulz refresh of an inverse seed against a moved
-    KKT; keeps the best-residual iterate per instance and restarts
-    diverged ones from it. Returns ``(X_best, resid)``."""
+# the polish's Newton-Schulz chains: iterations of a cold seed, steps of
+# a carried seed's guarded refresh
+NS_SEED_ITERS = 40
+NS_REFRESH_STEPS = 2
+# chains of a batch at least this large run in the `polish_ns` kernel,
+# smaller ones in batched cuBLAS products (the plain version), by mode: a
+# chain holds one SM in the kernel, where cuBLAS spreads a small batch's
+# products over the card. Captured, a cold seed of B <= 32 chains runs
+# faster in cuBLAS, of B >= 64 in the kernel; the refresh runs faster in
+# the kernel at every B, B = 1 included (PERF.md section 3)
+NS_KERNEL_MIN_BATCH = {"seed": 64, "refresh": 1}
+# the largest N2 whose chain fits a thread block (`fits` in
+# csrc/polish_ns.cu: 16 x 16 threads of an 8 x 8 tile)
+NS_KERNEL_MAX_N2 = 128
+
+_ns_lib = None
+ns_build_info: dict = {}
+
+
+def _ns_resid(P):
+    """||P - I||_inf per instance, inf where it is not finite."""
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    r = (P - eye).abs().sum(dim=-1).amax(dim=-1)
+    return torch.where(torch.isfinite(r), r, torch.full_like(r, float("inf")))
+
+
+def polish_ns_plain(Mb, X=None, steps: int = NS_REFRESH_STEPS, *, out=None,
+                    idx=None, keep=None):
+    """The plain version of `polish_ns`, in batched products.
+
+    Seed (``X`` None): X0 = Mb' / ||Mb||_F^2 (valid for the indefinite and
+    the row-replaced asymmetric KKT alike), then `NS_SEED_ITERS`
+    iterations of X <- X (2I - Mb X). Returns the seed, or with ``out``
+    (the batch's seeds), ``idx`` and ``keep`` (a rebuild pass on the
+    gathered ``Mb = M[idx]``) writes it into ``out[idx]`` where ``keep``,
+    in place, and returns ``out``.
+
+    Refresh (``X`` a carried seed): ``steps`` guarded Newton-Schulz steps
+    against the moved KKT, keeping the best-residual iterate per instance
+    and restarting from it where the residual ||Mb X - I||_inf is not
+    below 1; the restart product Mb X_best is taken where X is not X_best
+    already (elsewhere it is Mb X bit for bit). Returns ``(X_best,
+    r_best)``, X_best a tensor of its own.
+
+    Full-f32 products throughout: a reduced-precision pass does not
+    contract at all."""
     N2 = Mb.shape[-1]
-    eye = torch.eye(N2, dtype=Mb.dtype, device=Mb.device)
-    eye2 = 2.0 * eye
-
-    def resid_inf(P):
-        r = (P - eye).abs().sum(dim=-1).amax(dim=-1)
-        return torch.where(torch.isfinite(r), r, torch.full_like(r, float("inf")))
-
+    eye2 = 2.0 * torch.eye(N2, dtype=Mb.dtype, device=Mb.device)
+    if X is None:
+        fro2 = (Mb * Mb).sum(dim=(-1, -2))
+        X = Mb.transpose(-1, -2) / torch.clamp_min(fro2, 1e-30)[:, None, None]
+        for _ in range(NS_SEED_ITERS):
+            X = X @ (eye2 - Mb @ X)
+        if out is None:
+            return X
+        out[idx] = torch.where(keep[:, None, None], X, out[idx])
+        return out
+    X_in = X
     P = Mb @ X
-    r_best = resid_inf(P)
+    r_best = r = _ns_resid(P)
     X_best = X
+    same = torch.ones_like(r, dtype=torch.bool)   # X is X_best
     for _ in range(steps):
-        ok = (resid_inf(P) < 1.0)[:, None, None]
-        X = torch.where(ok, X, X_best)
-        P = torch.where(ok, P, Mb @ X_best)
+        restart = (~(r < 1.0) & ~same)[:, None, None]
+        X = torch.where(restart, X_best, X)
+        P = torch.where(restart, Mb @ X_best, P)
         X = X @ (eye2 - P)
         P = Mb @ X
-        r = resid_inf(P)
-        better = r < r_best
-        X_best = torch.where(better[:, None, None], X, X_best)
+        r = _ns_resid(P)
+        same = r < r_best
+        X_best = torch.where(same[:, None, None], X, X_best)
         r_best = torch.minimum(r, r_best)
-    return X_best, r_best
+    return (X_best.clone() if X_best is X_in else X_best), r_best
+
+
+def ns_kernel_takes(B: int, N2: int, mode: str) -> bool:
+    """Whether `polish_ns` runs a batch of ``B`` chains at ``N2`` in the
+    kernel on the card, ``mode`` "seed" or "refresh": ``B`` at least the
+    mode's `NS_KERNEL_MIN_BATCH` and a chain fits a thread block
+    (``N2 <= NS_KERNEL_MAX_N2``)."""
+    return B >= NS_KERNEL_MIN_BATCH[mode] and 1 <= N2 <= NS_KERNEL_MAX_N2
+
+
+def build_polish_ns():
+    """Compile `csrc/polish_ns.cu` (`ops.pallas_admm.build_library`, the
+    ADMM kernels' flags) and load it; the compile seconds, the compiler's
+    log and its register/spill report go into `ns_build_info`."""
+    global _ns_lib
+    if _ns_lib is not None:
+        return _ns_lib
+    import ctypes
+    import pathlib
+
+    from fcc_qp_tpu_torch.ops.pallas_admm import build_library, ptxas_report
+
+    source = (pathlib.Path(__file__).resolve().parent.parent / "csrc"
+              / "polish_ns.cu")
+    so, log, seconds = build_library(source)
+    ns_build_info.update(seconds=seconds, library=str(so), log=log,
+                         ptxas=ptxas_report(log))
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.polish_ns.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.polish_ns.restype = i
+    lib.polish_ns_init.restype = i
+    err = lib.polish_ns_init()
+    if err != 0:
+        raise RuntimeError(f"polish_ns: CUDA error {err} setting its shared "
+                           f"memory limit")
+    _ns_lib = lib
+    return lib
+
+
+def polish_ns(Mb, X=None, steps: int = NS_REFRESH_STEPS, *, out=None,
+              idx=None, keep=None, clock=None):
+    """The polish's Newton-Schulz chains on the pinned, row-replaced KKT
+    ``Mb`` (B, N2, N2) f32: a cold seed (``X`` None; with ``out``,
+    ``idx``, ``keep`` a masked rebuild pass) or the guarded refresh of a
+    carried seed ``X``. Arguments and results as `polish_ns_plain`.
+
+    CPU tensors take `polish_ns_plain`; so do batches the kernel does not
+    take on the card (`ns_kernel_takes`). Otherwise one launch of the
+    hand kernel (`csrc/polish_ns.cu`, a chain per thread block, counted in
+    ``polish_ns.launches``); a masked pass skips the chains it would throw
+    away. ``clock`` (`utils.timing.StageClock`) counts the chains the
+    kernel computed (``n_polish_ns_live``) and skipped by the mask
+    (``n_polish_ns_skipped``)."""
+    B, N2 = Mb.shape[0], Mb.shape[-1]
+    if (Mb.device.type == "cpu"
+            or not ns_kernel_takes(B, N2, "seed" if X is None else "refresh")):
+        return polish_ns_plain(Mb, X, steps, out=out, idx=idx, keep=keep)
+    if clock is not None:
+        clock.count("n_polish_ns_live", B if keep is None else keep)
+        clock.count("n_polish_ns_skipped", 0 if keep is None else ~keep)
+    import ctypes
+
+    f32 = torch.float32
+    if not (Mb.dtype == f32 and Mb.dim() == 3 and Mb.shape[1] == N2):
+        raise ValueError(f"polish_ns: Mb must be a (B, N2, N2) f32 tensor, "
+                         f"got {tuple(Mb.shape)} {Mb.dtype}")
+    Mb = Mb.contiguous()
+    dev = Mb.device
+    ptr = lambda t: None if t is None else t.data_ptr()
+    if X is None:
+        den = torch.clamp_min((Mb * Mb).sum(dim=(-1, -2)), 1e-30)
+        if out is None:
+            out = torch.empty_like(Mb)
+        else:
+            ok = (out.dtype == f32 and out.is_contiguous()
+                  and out.shape[1:] == Mb.shape[1:]
+                  and idx.dtype == torch.int64 and idx.shape == (B,)
+                  and keep.dtype == torch.bool and keep.shape == (B,))
+            if not ok:
+                raise ValueError("polish_ns: a rebuild pass takes out (B', "
+                                 "N2, N2) f32 and idx (int64) / keep (bool) "
+                                 "of length B")
+            idx, keep = idx.contiguous(), keep.contiguous()
+        args = (Mb, den, None, out, None, idx, keep)
+    else:
+        if not (X.dtype == f32 and X.shape == Mb.shape):
+            raise ValueError(f"polish_ns: X must be an f32 tensor of Mb's "
+                             f"shape, got {tuple(X.shape)}")
+        X = X.contiguous()
+        out = torch.empty_like(Mb)
+        r_best = torch.empty((B,), dtype=f32, device=dev)
+        args = (Mb, None, X, out, r_best, None, None)
+    err = build_polish_ns().polish_ns(
+        *(ptr(t) for t in args), B, N2, NS_SEED_ITERS, steps,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"polish_ns: CUDA error {err} at launch")
+    polish_ns.launches += 1
+    return out if X is None else (out, r_best)
+
+
+polish_ns.launches = 0
 
 
 def _seed_refresh_or_rebuild(seed, Mb, steps: int, clock=None,
@@ -239,42 +389,23 @@ def _seed_refresh_or_rebuild(seed, Mb, steps: int, clock=None,
     one is rebuilt (``static``: the ``ceil(B / C)`` passes that cover the
     batch, each a branch on whether any is left). ``clock``
     (`utils.timing.StageClock`) counts the rebuilt instances
-    (``n_polish_rebuild``)."""
+    (``n_polish_rebuild``) and the chains (`polish_ns`)."""
     B = Mb.shape[0]
-    X, r = _ns_refresh_guarded(seed, Mb, steps)
+    X, r = polish_ns(Mb, seed, steps, clock=clock)
     rem = r > 0.3
     if clock is not None:
         clock.count("n_polish_rebuild", rem)
     C = gather_capacity(B)
-    if static or bool(rem.any()):
-        X = X.clone()
 
     def rebuild(X, rem):
-        # in place: a pass with nothing pending rewrites what it read
+        # in place: a pass with nothing pending writes nothing
         idx = torch.argsort(-rem.float(), stable=True)[:C]
-        Xc = _polish_seed_f32(Mb[idx])
-        keep = rem[idx][:, None, None]
-        X[idx] = torch.where(keep, Xc, X[idx])
+        X = polish_ns(Mb[idx], out=X, idx=idx, keep=rem[idx], clock=clock)
         rem.index_fill_(0, idx, False)
         return X, rem
 
     X, _ = gathered_loop(static, pass_count(B, C), lambda X, rem: rem,
                          rebuild, X, rem)
-    return X
-
-
-def _polish_seed_f32(Mb, ns_iters: int = 40):
-    """f32 inverse seed of the pinned polish KKT ``Mb`` (B, N2, N2) by
-    Newton-Schulz from the Frobenius-normalized transpose seed
-    X0 = M' / ||M||_F^2 (valid for the indefinite and the row-replaced
-    asymmetric KKT alike). Full-f32 matmuls throughout: a
-    reduced-precision pass does not contract at all."""
-    N2 = Mb.shape[-1]
-    fro2 = (Mb * Mb).sum(dim=(-1, -2))
-    X = Mb.transpose(-1, -2) / torch.clamp_min(fro2, 1e-30)[:, None, None]
-    eye2 = 2.0 * torch.eye(N2, dtype=Mb.dtype, device=Mb.device)
-    for _ in range(ns_iters):
-        X = X @ (eye2 - Mb @ X)
     return X
 
 
@@ -519,8 +650,9 @@ def polish_reduced(
             c, low, up, surf, apex, lam_lin, eta
         )
         Mb = _assemble_m2_masked(Q_aug.float(), pin, A2.float(), Dtail)
-        X = (_polish_seed_f32(Mb) if X is None
-             else _seed_refresh_or_rebuild(X, Mb, 2, clock, static))
+        X = (polish_ns(Mb, clock=clock) if X is None
+             else _seed_refresh_or_rebuild(X, Mb, NS_REFRESH_STEPS, clock,
+                                           static))
         x, y, raw = _solve_structured_masked(X, Q_aug, pin, A2, A2t, Dtail, r1, r2)
         mu_new = reconstruct_duals(c, x, y, raw, low, up, surf, apex)
         s_new, x_res, lam_res, _, score = accept_eval(c, x, mu_new)
