@@ -8,8 +8,10 @@ cell of `BENCHMARK.json` named (default: all) it sets the cell's driver
 up and runs its window as `qpbench.run` does, then prints one JSON line
 from `fcc_qp_tpu_torch.utils.timing.telemetry()`: for each capture, its
 replays, each stage's device ms and visits per replay (all of
-`STAGES`, not only the four the benchmark reads), its seconds by phase
-and its nodes by type; and each host span's count and median ms.
+`STAGES`, not only the four the benchmark reads), its sub-stage sites
+summed by name, mode, N2 and path (ms and visits per replay, and the
+sites' count), its seconds by phase and its nodes by type; and each host
+span's count and median ms.
 """
 
 from __future__ import annotations
@@ -50,13 +52,22 @@ def main() -> int:
         caps = []
         for c in snap["captures"][first:]:
             r = max(c["replays"], 1)
+            subs = {}
+            for site in c.get("sites", []):
+                key = "/".join(str(site.get(k)) for k in (
+                    "name", "mode", "n2", "path"))
+                t = subs.setdefault(key, dict(ms=0.0, visits=0.0, sites=0))
+                t["ms"] += site["ns"] * 1e-6 / r
+                t["visits"] += site["visits"] / r
+                t["sites"] += 1
             caps.append(dict(
                 kind=c["kind"], warm=c["warm"], replays=c["replays"],
                 stage_ms={k: v["ns"] * 1e-6 / r
                           for k, v in c["stages"].items() if v["visits"]},
                 visits={k: v["visits"] / r
                         for k, v in c["stages"].items() if v["visits"]},
-                seconds=c["seconds"], nodes=c["nodes"], stamps=c["stamps"]))
+                sub_stage_ms=subs, seconds=c["seconds"], nodes=c["nodes"],
+                stamps=c["stamps"]))
         spans = {}
         for k, s in snap["spans"].items():
             n = s["count"] - counts.get(k, 0)

@@ -2,7 +2,8 @@
 over the walking-log replay (the counterpart of the repository's JAX
 `bench.py`, with its flags, data, options, timing and JSON keys).
 
-    python -m fcc_qp_tpu_torch.bench [--model cassie|quadruped|humanoid]
+    python -m fcc_qp_tpu_torch.bench [--model cassie|quadruped|humanoid|
+                                      talos_mc]
     python -m fcc_qp_tpu_torch.bench --device cpu --batch 8 --steps 3 \\
         --cold-batch 16 --repeats 1
 
@@ -10,7 +11,12 @@ The headline is a warm-started replay of the model's synthetic walking
 log at eps 1e-6 (`replay_ds_streams`: ``--batch`` streams of ``--steps``
 consecutive steps); the cold half solves the log's first ``--cold-batch``
 steps as one batch (`solve_batched_ds`, or with ``--engine f64|f32`` the
-parity engine's `solve_batched` on f64 or f32 data). On the card every
+parity engine's `solve_batched` on f64 or f32 data). The models are
+`models.osc.PORT_MODELS`: the JAX package's three and the port's
+``talos_mc`` (n = 118), which runs on the default path only:
+``--engine f64|f32`` and ``--splitting full`` take the full-layout
+kernels, which hold n <= 96 rows (`ops.pallas_admm.check_rows`), so
+they raise for it on the card. On the card every
 solve replays the captured graphs the engines make at their first call
 (the first call is timed apart); ``--device cpu`` runs the kernels'
 plain versions. Without a card and without ``--device cpu`` it raises.
@@ -40,7 +46,7 @@ import torch
 from fcc_qp_tpu_torch import (FCCQPOptions, replay_ds_streams, solve_batched,
                               solve_batched_ds, to_ds_batch)
 from fcc_qp_tpu_torch.core.ds_engine import resolve_device
-from fcc_qp_tpu_torch.models.osc import MODELS, generate_osc_sequence
+from fcc_qp_tpu_torch.models.osc import PORT_MODELS, generate_osc_sequence
 from fcc_qp_tpu_torch.utils.io import (load_qp_log_packed, save_qp_log_packed,
                                        stack_qp_dicts, to_qpbatch)
 from fcc_qp_tpu_torch.utils.timing import sync
@@ -70,12 +76,15 @@ def parse_args(argv=None):
     p.add_argument("--max-iter", type=int, default=3000)
     p.add_argument("--rho", type=float, default=0.05)
     p.add_argument("--eps", type=float, default=1e-6)
-    p.add_argument("--model", choices=sorted(MODELS), default="cassie")
+    p.add_argument("--model", choices=sorted(PORT_MODELS), default="cassie",
+                   help="talos_mc runs on --engine ds with constrained "
+                        "splitting only (n = 118 > the full layout's 96)")
     p.add_argument("--smoothness", type=float, default=0.002,
                    help="per-step innovation rate of the synthetic log")
     p.add_argument("--engine", choices=["ds", "f64", "f32"], default="ds",
                    help="ds = the batched reduced engine; f64 / f32 = the "
-                        "parity engine on f64 / f32 data")
+                        "parity engine on f64 / f32 data (full layout: "
+                        "n <= 96)")
     p.add_argument("--adaptive-rho", dest="adaptive", action="store_true",
                    default=False)
     p.add_argument("--no-adaptive-rho", dest="adaptive", action="store_false")
@@ -132,7 +141,7 @@ def walking_log(args, T: int, cache_dir: str) -> dict:
         return stacked
     t0 = time.perf_counter()
     stacked = stack_qp_dicts(generate_osc_sequence(
-        MODELS[args.model], T, seed=0, smoothness=args.smoothness))
+        PORT_MODELS[args.model], T, seed=0, smoothness=args.smoothness))
     save_qp_log_packed(cache, stacked)
     log(f"generated log in {time.perf_counter() - t0:.1f}s -> {cache}")
     return stacked
@@ -143,7 +152,7 @@ def options(args) -> FCCQPOptions:
     the polish's Newton steps default to the model's own."""
     newton_steps = (args.polish_newton_steps
                     if args.polish_newton_steps is not None
-                    else MODELS[args.model].polish_newton_steps)
+                    else PORT_MODELS[args.model].polish_newton_steps)
     return FCCQPOptions(
         max_iter=args.max_iter, rho=args.rho,
         eps_fcone=args.eps, eps_bound=args.eps,
@@ -191,7 +200,7 @@ def run(argv=None, cache_dir=None):
     the record is the JSON object `main` prints last."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    model = MODELS[args.model]
+    model = PORT_MODELS[args.model]
     shape = model.shape
     card = device_line(dev)
     log(f"device: {dev} ({card}), engine={args.engine}, model={args.model}, "

@@ -54,8 +54,10 @@ polish starts from the carried seed and classification before any ADMM
 iteration. `replay_ds` is the serial single-stream replay.
 
 The kernels take at most 96 rows (n on the full engine, k on the
-reduced path; `ops.pallas_admm.MAX_ROWS`), which covers every model of
-`models/osc.py`: larger problems raise on the card.
+reduced path; `ops.pallas_admm.MAX_ROWS`): the reduced path covers every
+model of `models/osc.py` (talos_mc's k = 80 on three row slots), the
+full engine the JAX package's three but not talos_mc (n = 118). Larger
+problems raise on the card.
 """
 
 from __future__ import annotations

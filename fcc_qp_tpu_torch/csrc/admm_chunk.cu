@@ -1,8 +1,9 @@
 // Fused ADMM iteration chunks of the reduced FCCQP engine, for Hopper
 // (sm_90a). Two precisions share one template, each in three row layouts
 // (NR = 1 for k <= 32 constrained rows, NR = 2 for 32 < k <= 64, NR = 3
-// for 64 < k <= 96: every model in models/osc.py, the humanoid's 76 rows
-// with splitting="full" included):
+// for 64 < k <= 96: talos_mc's k = 80 on the reduced layout, and the
+// humanoid's n = 76 with splitting="full"; talos_mc's n = 118 is beyond
+// the full layout):
 //
 //   admm_chunk_f64  replaces fcc_qp_tpu/ops/pallas_admm.py::admm_chunk_pallas
 //                   (Pallas body `_kernel`), which runs the endgame in
@@ -70,7 +71,7 @@
 //     the mat-vec runs in groups of 8 columns, so a group's shuffles
 //     issue together, and pads the last group with exact no-op adds.
 //     NR = 2, 3: the warp's k x k operator sits in dynamic shared memory
-//     (NR = 3: one warp a block, 46 KB at k = 76 in f64; a block of four
+//     (NR = 3: one warp a block, 51 KB at k = 80 in f64; a block of four
 //     would hold one block an SM and no more instances). Loads are strided (one instance's F[j][i] are B elements apart), so
 //     each value moves as one 32-byte sector: 4x the operator's bytes in
 //     f64 and 8x in f32 from L2, once per chunk and only for instances

@@ -97,6 +97,16 @@ HUMANOID = RobotModel("humanoid", nv_dof=29, nu=23, nh=0, nc=24, nc_rows=12)
 
 MODELS = {m.name: m for m in (CASSIE, QUADRUPED, HUMANOID)}
 
+# PAL Robotics TALOS (Stasse et al., IEEE-RAS Humanoids 2017) in
+# four-contact multi-contact: 6 + 32 velocities, all 32 joints actuated,
+# both soles and both hands as 4-vertex patches (16 cones, 24 rigid
+# contact rows). n = 118, m = 62, k = 80 constrained rows, a polish KKT of
+# N2 = 196. The port's own: `MODELS` stays the JAX package's table.
+TALOS_MC = RobotModel("talos_mc", nv_dof=38, nu=32, nh=0, nc=48, nc_rows=24)
+
+# every robot the port runs: the JAX package's and the port's own
+PORT_MODELS = {**MODELS, TALOS_MC.name: TALOS_MC}
+
 
 class _SmoothWalk:
     """Low-pass random walk: x_{t+1} = (1-a) x_t + a * noise.

@@ -44,9 +44,12 @@ Differences from the Pallas kernels, by design:
   the Pallas kernels restart them from zero in every chunk);
 * any batch size works: no padding to a 128-instance tile;
 * at most `MAX_ROWS` = 96 rows (k, or n on the full layout): three row
-  slots of a warp's 32 lanes, which covers every model of `models/osc.py`
-  (the humanoid's n = 76 is the largest). The Pallas kernels unroll over
-  any row count; a CUDA launch above the limit raises (`check_rows`).
+  slots of a warp's 32 lanes. On the reduced layout that covers every
+  model of `models/osc.py` (`PORT_MODELS`: the largest k is talos_mc's
+  80, on three slots); on the full layout the JAX package's three (the
+  humanoid's n = 76), not talos_mc's n = 118. The Pallas kernels unroll
+  over any row count; a CUDA launch above the limit raises
+  (`check_rows`).
 """
 
 from __future__ import annotations

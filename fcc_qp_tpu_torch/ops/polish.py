@@ -44,6 +44,7 @@ from fcc_qp_tpu_torch.ops.ds_linalg import (
     transpose_ds,
 )
 from fcc_qp_tpu_torch.ops.projections import project_cone_ds, sqrt_rn
+from fcc_qp_tpu_torch.utils.timing import StageClock
 
 
 class PolishResult(NamedTuple):
@@ -215,7 +216,9 @@ NS_REFRESH_STEPS = 2
 # the kernel at every B, B = 1 included (PERF.md section 3)
 NS_KERNEL_MIN_BATCH = {"seed": 64, "refresh": 1}
 # the largest N2 whose chain fits a thread block (`fits` in
-# csrc/polish_ns.cu: 16 x 16 threads of an 8 x 8 tile)
+# csrc/polish_ns.cu: 16 x 16 threads of an 8 x 8 tile); past it every
+# chain takes the cuBLAS chain (`polish_ns_plain`) at every batch, as
+# talos_mc's N2 = 196 does
 NS_KERNEL_MAX_N2 = 128
 
 _ns_lib = None
@@ -329,16 +332,30 @@ def polish_ns(Mb, X=None, steps: int = NS_REFRESH_STEPS, *, out=None,
     ``polish_ns.launches``); a masked pass skips the chains it would throw
     away. ``clock`` (`utils.timing.StageClock`) counts the chains the
     kernel computed (``n_polish_ns_live``) and skipped by the mask
-    (``n_polish_ns_skipped``)."""
+    (``n_polish_ns_skipped``). Either path runs inside the stage clock's
+    sub-stage ``polish_chain`` (`StageClock.begin`), whose site records
+    the chains' ``mode`` ("seed", "rebuild" or "refresh"), ``n2``,
+    ``chains`` (the batch B) and ``path`` ("kernel" or "cublas")."""
     B, N2 = Mb.shape[0], Mb.shape[-1]
-    if (Mb.device.type == "cpu"
-            or not ns_kernel_takes(B, N2, "seed" if X is None else "refresh")):
-        return polish_ns_plain(Mb, X, steps, out=out, idx=idx, keep=keep)
-    if clock is not None:
-        clock.count("n_polish_ns_live", B if keep is None else keep)
-        clock.count("n_polish_ns_skipped", 0 if keep is None else ~keep)
+    mode = "seed" if X is None else "refresh"
+    kernel = Mb.device.type != "cpu" and ns_kernel_takes(B, N2, mode)
+    clock = clock or StageClock()
+    site = clock.begin("polish_chain",
+                       mode="rebuild" if out is not None else mode, n2=N2,
+                       chains=B, path="kernel" if kernel else "cublas")
+    res = (_polish_ns_kernel(Mb, X, steps, out, idx, keep, clock) if kernel
+           else polish_ns_plain(Mb, X, steps, out=out, idx=idx, keep=keep))
+    clock.end(site)
+    return res
+
+
+def _polish_ns_kernel(Mb, X, steps, out, idx, keep, clock):
+    """`polish_ns` in one launch of the hand kernel."""
     import ctypes
 
+    B, N2 = Mb.shape[0], Mb.shape[-1]
+    clock.count("n_polish_ns_live", B if keep is None else keep)
+    clock.count("n_polish_ns_skipped", 0 if keep is None else ~keep)
     f32 = torch.float32
     if not (Mb.dtype == f32 and Mb.dim() == 3 and Mb.shape[1] == N2):
         raise ValueError(f"polish_ns: Mb must be a (B, N2, N2) f32 tensor, "

@@ -12,10 +12,14 @@ The telemetry, which observes and never changes an answer:
   synchronized host seconds per stage (``stage_times=``). Inside a
   CUDA graph capture its marks become stamp kernels
   (`csrc/graph_nodes.cu`, `stage_stamp`) that add each stage's device
-  nanoseconds and visits to the capture's row, at every replay;
+  nanoseconds and visits to the capture's row, at every replay; its
+  nested pairs (`StageClock.begin` / `end`, around each Newton-Schulz
+  chain of the polish) add a site's nanoseconds and visits to the
+  capture's sub-stage row, inside the stage and without closing it;
 * `CaptureRecord`: one per capture (`core.graphs.CapturedBatch`,
   `CapturedSolve`): its key, warm-up / capture / instantiate seconds,
-  graph nodes by type, hand-kernel launches, replays, and the stage row;
+  graph nodes by type, hand-kernel launches, replays, the stage row,
+  and the sub-stage sites with their row;
 * `span`: named host spans (`fccqp.<layer>.<name>`), each duration kept
   in a ring of the last `RING` per name; a profiler range opens only
   while a `torch.profiler` session records;
@@ -110,6 +114,12 @@ STAGES = ("scaling", "operator", "approach", "polish", "exact_build",
 _SLOT = {name: i for i, name in enumerate(STAGES)}
 # a row: the last stamp, then (nanoseconds, visits) per stage
 ROW = 1 + 2 * len(STAGES)
+# sub-stage sites a capture has room for, each a (nanoseconds, visits)
+# pair of its sub-stage row after the open pair's begin stamp: a cold
+# capture of 8192 opens about 470 (the polish's chain sites, every
+# gathered pass's included)
+SUB_SITES = 2048
+SUB_ROW = 1 + 2 * SUB_SITES
 
 # the record of the capture in progress and the graph being captured,
 # while it is (`stamping`): the only time a mark stamps
@@ -128,7 +138,13 @@ class StageClock:
     (`stamping`) queues one stamp kernel on the current stream, which at
     every replay adds the stage's device nanoseconds to the capture's
     row (a mark inside an IF body stamps on the body's stream, so a
-    skipped body stamps nothing). The counts (``n_refactor``,
+    skipped body stamps nothing). `begin` / `end` nest a sub-stage
+    inside the current stage: under a stamped capture they queue a pair
+    of stamps on the capture's sub-stage row, which add the device
+    nanoseconds between them to the site's slot and count its visit at
+    every replay, and leave the stage row alone, so the enclosing stage
+    still holds the sub-stage's time; otherwise (eager, or the CPU) they
+    do nothing. The counts (``n_refactor``,
     ``n_kkt_rescue``, ``n_fallback``, ``n_fallback_calls``,
     ``n_polish_rebuild``) are host reads, so they exist in the eager
     form only."""
@@ -152,6 +168,25 @@ class StageClock:
         now = time.perf_counter()
         self.out[stage] = self.out.get(stage, 0.0) + (now - self.t)
         self.t = now
+
+    def begin(self, name: str, **site) -> Optional[tuple]:
+        """Open the sub-stage ``name`` at a site described by ``site``
+        (plain values, known at capture: for a polish chain its mode,
+        N2, chain count and path); returns the token `end` takes, None
+        where nothing stamps."""
+        if _STAMPING is None:
+            return None
+        rec, graph = _STAMPING
+        if not (rec.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            return None
+        return rec, graph, rec.open_site(graph, name, site)
+
+    def end(self, token: Optional[tuple]) -> None:
+        """Close the sub-stage `begin` opened (None: nothing)."""
+        if token is not None:
+            rec, graph, slot = token
+            rec.queue_stamp(rec.sub, slot, graph)
 
     def count(self, key: str, mask) -> None:
         """Adds the number of set entries of ``mask`` (or an int) to
@@ -182,13 +217,19 @@ class CaptureRecord:
     hand kernels' launches in one replay of the pair, counted while it
     is captured). ``replays``: the pair's replays, counted on the host.
     ``row``: the stage clock's int64 row on the capture's device
-    (`ROW`), written by the stamps only."""
+    (`ROW`), written by the stamps only; ``sub``: its sub-stage row
+    (`SUB_ROW`), and ``sites``, one dict per sub-stage site opened in
+    the capture (``name``, ``graph`` and what `StageClock.begin` was
+    given), site i in slot i of ``sub``. The stamps of both rows count
+    in ``stamps``."""
 
     kind: str
     key: tuple
     warm: bool
     device: torch.device
     row: torch.Tensor
+    sub: torch.Tensor
+    sites: list = dataclasses.field(default_factory=list)
     seconds: dict = dataclasses.field(default_factory=dict)
     nodes: dict = dataclasses.field(default_factory=dict)
     stamps: dict = dataclasses.field(default_factory=dict)
@@ -200,11 +241,28 @@ class CaptureRecord:
         which adds nothing) on the current stream, which is capturing
         ``graph`` (``"operator"`` / ``"iteration"``) or an IF body in
         it."""
+        self.queue_stamp(self.row, slot, graph)
+
+    def open_site(self, graph: str, name: str, site: dict) -> int:
+        """Register a sub-stage site of ``graph`` and queue its begin
+        stamp (slot -1 of ``sub``, which only sets the last stamp);
+        returns the site's slot."""
+        slot = len(self.sites)
+        if slot >= SUB_SITES:
+            raise RuntimeError(f"a capture opened more than {SUB_SITES} "
+                               f"sub-stage sites")
+        self.sites.append(dict(site, name=name, graph=graph))
+        self.queue_stamp(self.sub, -1, graph)
+        return slot
+
+    def queue_stamp(self, row: torch.Tensor, slot: int, graph: str) -> None:
+        """Queue one stamp kernel of ``slot`` on ``row`` (the stage row
+        or the sub-stage row) on the current stream."""
         from fcc_qp_tpu_torch.ops.device_branch import build_graph_nodes
 
         err = build_graph_nodes().stage_stamp(
             torch.cuda.current_stream(self.device).cuda_stream,
-            self.row.data_ptr(), slot)
+            row.data_ptr(), slot)
         if err != 0:
             raise RuntimeError(f"could not queue a stage stamp: CUDA error "
                                f"{err}")
@@ -233,10 +291,12 @@ def _device(device) -> torch.device:
 
 def capture_record(kind: str, key: tuple, warm: bool,
                    device) -> CaptureRecord:
-    """A new record, its row allocated now (outside any capture)."""
+    """A new record, its rows allocated now (outside any capture)."""
     dev = _device(device)
     rec = CaptureRecord(kind=kind, key=key, warm=warm, device=dev,
                         row=torch.zeros((ROW,), dtype=torch.int64,
+                                        device=dev),
+                        sub=torch.zeros((SUB_ROW,), dtype=torch.int64,
                                         device=dev))
     _RECORDS.append(rec)
     return rec
@@ -329,8 +389,10 @@ def telemetry(device=None) -> dict:
     ns, oldest first, and ``count``, the spans ever closed) and
     ``captures`` (one dict per `CaptureRecord`, of ``device`` or of every
     device when None, with ``stages``: name -> ``ns`` and ``visits``
-    summed over its replays). Reads the rows back with one synchronize
-    and one small copy per device; call it outside the timed path."""
+    summed over its replays, and ``sites``: its sub-stage sites, each
+    with its ``ns`` and ``visits`` so summed). Reads the rows back with
+    one synchronize and one small copy per device; call it outside the
+    timed path."""
     recs = [r for r in _RECORDS
             if device is None or r.device == _device(device)]
     rows = {}
@@ -338,11 +400,12 @@ def telemetry(device=None) -> dict:
         mine = [r for r in recs if r.device == dev]
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        host = torch.stack([r.row for r in mine]).cpu().numpy()
+        host = torch.stack([torch.cat([r.row, r.sub])
+                            for r in mine]).cpu().numpy()
         rows.update({id(r): h for r, h in zip(mine, host)})
     captures = []
     for r in recs:
-        row = rows[id(r)]
+        row, sub = rows[id(r)][:ROW], rows[id(r)][ROW:]
         captures.append(dict(
             kind=r.kind, key=repr(r.key), warm=r.warm, device=str(r.device),
             seconds=dict(r.seconds), nodes=dict(r.nodes),
@@ -350,7 +413,10 @@ def telemetry(device=None) -> dict:
             replays=r.replays,
             stages={name: dict(ns=int(row[1 + 2 * i]),
                                visits=int(row[2 + 2 * i]))
-                    for i, name in enumerate(STAGES)}))
+                    for i, name in enumerate(STAGES)},
+            sites=[dict(site, ns=int(sub[1 + 2 * i]),
+                        visits=int(sub[2 + 2 * i]))
+                   for i, site in enumerate(r.sites)]))
     return dict(
         spans={name: dict(ns=s.durations(), count=s.n)
                for name, s in _SPANS.items()},
